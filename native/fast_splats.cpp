@@ -1,9 +1,9 @@
-// Native host services for the TPU gaussian-splatting framework.
+// Native host services for the gaussian-splatting framework.
 //
 // The reference leans on native code for its host-side hot paths: miniply for
 // PLY parsing (3rdparty/miniply, driven by ply_loader_async.cpp:357-445) and
 // the vrdx radix sort for depth ordering (3rdparty/vrdx). This file provides
-// the TPU-framework equivalents as a small C-ABI library consumed via ctypes:
+// the framework's equivalents as a small C-ABI library consumed via ctypes:
 //
 //  - fast_ply_extract: multithreaded strided gather from a binary
 //    little-endian PLY payload into caller-allocated column arrays (the

@@ -5,10 +5,11 @@ grow with the geometry a bundle approaches, not the scene total: sub-linear
 growth from 1k -> 10k -> 50k faces. A camera-style coherent bundle traces a
 tessellated sphere scene of increasing density.
 
-Usage (chip): PYTHONPATH="/root/repo:$PYTHONPATH" python
-scripts/bench_mesh_trace.py   — background, never under `timeout`.
+Usage, from the repository root on the GPU:
+    python scripts/bench_mesh_trace.py
 """
 
+import os
 import sys
 import time
 
@@ -16,7 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from vk_gaussian_splatting_tpu.ops.raytrace import trace_mesh  # noqa: E402
 
 

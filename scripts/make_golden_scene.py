@@ -13,11 +13,11 @@ exactly this bite). This script produces a CHECKED-IN trained scene:
    (size/opacity distributions adapting to screen-space detail, INRIA-style
    benchmark.py:419-433);
 4. save: assets/golden/golden_scene.ply (our io.ply writer), meta.json
-   (recipe, per-view PSNR, span-occupancy profile), golden_view.npy golden
+   (recipe, per-view PSNR, screen-radius profile), golden_view.npy golden
    render, and orbit PNGs for the docs.
 
-Run ON CHIP (background, no timeout): CPU interpret training is ~50x slower.
-    PYTHONPATH="/root/repo:$PYTHONPATH" python scripts/make_golden_scene.py
+Run on the GPU (pass --cpu to force the CPU, which is much slower):
+    python scripts/make_golden_scene.py
 """
 
 import json
@@ -33,7 +33,7 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from vk_gaussian_splatting_tpu.config import RenderConfig  # noqa: E402
 from vk_gaussian_splatting_tpu.io.ply import save_ply  # noqa: E402
 from vk_gaussian_splatting_tpu.render.pipelines import render_3dgs  # noqa: E402
@@ -168,21 +168,13 @@ def main():
             print(f"[{time.time()-t0:.0f}s] densified -> "
                   f"{student.means.shape[0]} splats", flush=True)
 
-    # evaluate + span-occupancy profile
-    from vk_gaussian_splatting_tpu.ops.bucket_grid import (
-        BucketGridSpec,
-        measure_required_caps,
-    )
+    # evaluate + screen-radius profile
     from vk_gaussian_splatting_tpu.ops.projection import project_splats
 
     prepared = student.prepare()
     psnrs = [psnr(jnp.clip(render_3dgs(prepared, c, cfg,
                                        max_pairs=1 << 21).image, 0, 1), t)
              for c, t in zip(cams, targets)]
-    spec = BucketGridSpec.build(W // 16, H // 16)
-    req = [int(x) for x in np.asarray(measure_required_caps(
-        jax.jit(lambda p, c: project_splats(p, c, cfg))(prepared, cams[0]),
-        spec))]
     radii = np.asarray(jax.jit(
         lambda p, c: project_splats(p, c, cfg).radius.max(axis=1))(
             prepared, cams[0]))
@@ -191,7 +183,6 @@ def main():
         "n_splats": int(student.means.shape[0]),
         "psnr_per_view": [round(p, 2) for p in psnrs],
         "psnr_mean": round(float(np.mean(psnrs)), 2),
-        "required_caps_view0": req,
         "screen_radius_median": round(float(np.median(radii[vis])), 2),
         "screen_radius_p99": round(float(np.quantile(radii[vis], 0.99)), 2),
         "frac_fine": round(float((radii[vis] < 8).mean()), 4),

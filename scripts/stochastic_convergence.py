@@ -10,10 +10,11 @@ render of the identical scene:
 - PASS: the Monte-Carlo pass-termination estimator of the ray marcher
   (rgen:765-800 analog, ops/raytrace.py).
 
-Writes docs/stochastic_convergence.md. Runs on CPU (interpret) by default;
-pass --chip to use the TPU.
+Writes docs/stochastic_convergence.md. Runs on the CPU by default; pass
+--chip to use the default JAX backend (the GPU).
 """
 
+import os
 import sys
 import time
 
@@ -27,7 +28,7 @@ import dataclasses  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from vk_gaussian_splatting_tpu.config import (  # noqa: E402
     RenderConfig,
     StochasticMode,
@@ -135,7 +136,9 @@ def main():
         "curves.",
         "",
     ]
-    with open("/root/repo/docs/stochastic_convergence.md", "w") as fh:
+    out = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "docs", "stochastic_convergence.md")
+    with open(out, "w") as fh:
         fh.write("\n".join(lines))
     print("written docs/stochastic_convergence.md", flush=True)
 

@@ -14,6 +14,4 @@ import jax  # noqa: E402
 # conftest ran — e.g. by a pytest plugin.
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", False)
-# NOTE: do not enable jax_compilation_cache_dir here — serializing the large
-# interpret-mode Pallas executables segfaults the CPU backend (observed at
-# compilation_cache.put_executable_and_time).
+# No persistent compile cache for the tests: each run compiles afresh.

@@ -1,6 +1,7 @@
 """Benchmark harness: cfg parsing, grammar output, end-to-end sequence run."""
 
 import io
+import os
 import re
 
 import jax
@@ -16,9 +17,16 @@ from vk_gaussian_splatting_tpu.utils.memstats import MemoryStatistics
 from vk_gaussian_splatting_tpu.utils.profiling import FrameTimers
 
 
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures")
+
+
 def test_parse_reference_cfg():
-    """Our parser must handle the reference's own cfg files verbatim."""
-    blocks = parse_sequence_file("/root/reference/benchmark_3dgs.cfg")
+    """The parser handles sequence files in the reference's cfg grammar:
+    quoted SEQUENCE blocks, valued and bare flags, several flags on a line,
+    trailing comments."""
+    blocks = parse_sequence_file(os.path.join(FIXTURES,
+                                              "benchmark_3dgs.cfg"))
     assert blocks[0][0] == "Load scene and common settings"
     assert blocks[0][1]["sequenceframes"] == "1024"
     names = [b[0] for b in blocks]
@@ -27,7 +35,7 @@ def test_parse_reference_cfg():
     assert mesh16["pipeline"] == "1" and mesh16["shformat"] == "1"
     assert "updateData" in mesh16
 
-    rt = parse_sequence_file("/root/reference/benchmark_3dgrt.cfg")
+    rt = parse_sequence_file(os.path.join(FIXTURES, "benchmark_3dgrt.cfg"))
     kd = [b for _, b in rt if "kernelDegree" in b]
     assert kd and kd[0]["kernelDegree"] == "4"  # comment stripped
 

@@ -64,32 +64,6 @@ def test_golden_trained_statistics(golden):
     assert meta["psnr_mean"] > 28               # actually converged
 
 
-def test_golden_bucket_fit_caps_no_overflow(golden):
-    """The bench's cap-derivation flow on the trained corpus: measure ->
-    fit -> render without overflow, matching the pair path."""
-    from vk_gaussian_splatting_tpu.ops.bucket_grid import (
-        BucketGridSpec,
-        fit_caps,
-        measure_required_caps,
-    )
-    from vk_gaussian_splatting_tpu.ops.projection import project_splats
-
-    splats, meta, cfg, cam = golden
-    prepared = splats.prepare()
-    spec = BucketGridSpec.build(cfg.width // 16, cfg.height // 16)
-    req = np.asarray(jax.jit(
-        lambda p, c: measure_required_caps(project_splats(p, c, cfg), spec))(
-            prepared, cam))
-    caps = fit_caps([int(x) for x in req])
-    bcfg = cfg.replace(raster=dataclasses.replace(
-        cfg.raster, method="bucket", bucket_caps=caps))
-    out = render_3dgs(prepared, cam, bcfg)
-    assert not bool(out.overflow)
-    ref = render_3dgs(prepared, cam, cfg, max_pairs=1 << 21)
-    d = np.abs(np.asarray(out.image) - np.asarray(ref.image))
-    assert d.max() < 1e-4, d.max()
-
-
 def test_golden_gradients_finite_difference(golden):
     """Finite-difference gradient check on the trained distribution (the
     r03 verdict: every gradient test ran on random_splats)."""

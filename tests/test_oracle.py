@@ -1,8 +1,8 @@
 """EXTERNAL correctness oracle (VERDICT r4 missing #5 / next #6).
 
 Every other oracle in this repo shares math with the library (rasterize_ref,
-pair-vs-bucket, the golden corpus trained by this same code). This file
-breaks that loop: ``ShaderEmulator`` below is a literal float64 NumPy
+the two tile blenders, the golden corpus trained by this same code). This file
+breaks that loop: ``emulate_render`` below is a literal float64 NumPy
 transcription of the reference's ACTUAL shader code paths —
 
   - color/opacity activation        splat_set_vk.cpp:313-345
@@ -26,8 +26,6 @@ engages (the floor genuinely distorts near-isotropic splats in the
 reference; the conic path has no such floor). The test asserts this
 precondition on every visible splat.
 """
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -214,13 +212,10 @@ def _oracle_scene(n=120, seed=3):
         sh_rest=jnp.asarray(sh_rest, jnp.float32))
 
 
-@pytest.mark.parametrize("method", ["pairs", "bucket"])
+@pytest.mark.parametrize("method", ["pairs"])
 def test_render_matches_reference_shader_emulation(method):
     w = h = 64
     cfg = RenderConfig(width=w, height=h, sh_degree=3)
-    if method == "bucket":
-        cfg = cfg.replace(raster=dataclasses.replace(
-            cfg.raster, method="bucket", bucket_caps=(256, 256, 256, 256)))
     splats = _oracle_scene()
     cam = look_at([0.1, -0.2, -4.0], [0, 0, 0], [0, 1, 0], w, h,
                   fov_y_rad=0.9)
@@ -240,8 +235,8 @@ def test_render_matches_reference_shader_emulation(method):
         float(cam.cy), w, h, sh_degree=3)
 
     # f32 pipeline vs f64 emulator: roundoff accumulates over ~100 blended
-    # splats; the kernel's per-pixel T<1e-4 freeze truncates contributions
-    # bounded by 1e-4. Anything structural (SH signs, eigen/conic mismatch,
+    # splats; the blender's stop once a tile is opaque (T<1e-4) truncates
+    # contributions bounded by 1e-4. Anything structural (SH signs, eigen/conic mismatch,
     # blend order) produces errors orders of magnitude above this bar.
     assert np.max(np.abs(img - ref_img)) < 2e-3, np.max(np.abs(img - ref_img))
     assert np.mean(np.abs(img - ref_img)) < 1e-4

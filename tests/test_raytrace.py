@@ -141,8 +141,7 @@ def test_mirror_bounce_matches_oracle_rays():
     mb = _mirror_mesh()
     cam = look_at([0, 0.5, -7], [0, -0.8, 0], [0, 1, 0],
                   cfg.width, cfg.height)
-    _, _, _, fid = render_mesh(mb, cam, cfg, max_pairs=1 << 18,
-                               interpret=True)
+    _, _, _, fid = render_mesh(mb, cam, cfg, max_pairs=1 << 18)
     origins, dirs, thr, mask, _ = secondary_spawn(
         cam, cfg, mb, fid.astype(jnp.int32),
         jnp.ones((cfg.height, cfg.width)))
@@ -174,7 +173,7 @@ def test_composed_wavefront_pipeline_adds_reflection():
     cam = look_at([0, 0.5, -7], [0, -0.8, 0], [0, 1, 0],
                   cfg.width, cfg.height)
     out, final = render_composed_wavefront(splats, cam, cfg, mesh=mb,
-                                           max_bounces=2, interpret=True)
+                                           max_bounces=2)
     base = np.asarray(out.image)
     fin = np.asarray(final)
     assert np.isfinite(fin).all()
@@ -203,7 +202,7 @@ def test_composed_wavefront_refraction_finite():
     mb = mesh_buffers_from_obj(mesh)
     cam = look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], cfg.width, cfg.height)
     out, final = render_composed_wavefront(splats, cam, cfg, mesh=mb,
-                                           max_bounces=3, interpret=True)
+                                           max_bounces=3)
     fin = np.asarray(final)
     assert np.isfinite(fin).all()
     # refracted splat light passes through the pane

@@ -203,31 +203,13 @@ def test_binning_pairs_against_numpy():
             np.testing.assert_allclose(attrs[0, p_], xy[i, 0], rtol=1e-6)
             np.testing.assert_allclose(attrs[9, p_], depth[i], rtol=1e-6)
 
-    # schedule consistency: every step's lane range lies in its tile segment
-    st_t = np.asarray(bins.sched_tile)
-    st_b = np.asarray(bins.sched_block)
-    st_lo = np.asarray(bins.sched_lo)
-    st_hi = np.asarray(bins.sched_hi)
-    st_first = np.asarray(bins.sched_first)
-    st_last = np.asarray(bins.sched_last)
-    covered = {t: [] for t in range(16)}
-    for sidx in range(len(st_t)):
-        t = st_t[sidx]
-        if t < 0:
-            continue
-        lo = st_b[sidx] * 128 + st_lo[sidx]
-        hi = st_b[sidx] * 128 + st_hi[sidx]
-        assert starts[t] <= lo < hi <= starts[t] + counts[t]
-        covered[t].append((lo, hi, st_first[sidx], st_last[sidx]))
-    for t in range(16):
-        segs = covered[t]
-        if counts[t] == 0:
-            assert not segs
-            continue
-        assert segs[0][0] == starts[t] and segs[0][2] == 1
-        assert segs[-1][1] == starts[t] + counts[t] and segs[-1][3] == 1
-        for a, b in zip(segs, segs[1:]):
-            assert a[1] == b[0]  # contiguous coverage
+    # segments tile the live pairs contiguously, and at least one chunk of
+    # padding follows the last one (the blenders load whole chunks)
+    assert starts[0] == 0
+    assert (starts[1:] == starts[:-1] + counts[:-1]).all()
+    end = starts[-1] + counts[-1]
+    assert end == int(bins.num_pairs)
+    assert bins.attrs.shape[1] - end >= 128
 
 
 def test_sh_band_rotation_exact():

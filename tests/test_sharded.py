@@ -1,7 +1,5 @@
 """Multi-device sharded render/training on the virtual 8-device CPU mesh."""
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,12 +26,6 @@ def scene():
     return cfg, splats, cam
 
 
-def _bucket(cfg, caps=(128, 256, 128, 128)):
-    # module scene's measured requirement is (97, 220, 109, 109)
-    return cfg.replace(raster=dataclasses.replace(
-        cfg.raster, method="bucket", bucket_caps=caps))
-
-
 def test_sharded_matches_single_device(scene):
     cfg, splats, cam = scene
     assert len(jax.devices()) >= 8
@@ -44,37 +36,6 @@ def test_sharded_matches_single_device(scene):
                                atol=3e-5, rtol=1e-4)
     assert float(out.transmittance.min()) < 0.9  # non-vacuous
     assert not bool(ov)
-
-
-def test_sharded_bucket_matches_single_device(scene):
-    """The flagship bucket kernel under shard_map (VERDICT r03 next #3):
-    each band bins into its own band-local BucketGridSpec and must match
-    the single-device bucket render."""
-    cfg, splats, cam = scene
-    bcfg = _bucket(cfg)
-    mesh = make_mesh(8)
-    img_sh, trans_sh, ov = render_3dgs_sharded(splats, cam, bcfg, 0, mesh)
-    ref = render_3dgs(splats.prepare(), cam, bcfg)
-    assert not bool(ov) and not bool(ref.overflow)
-    np.testing.assert_allclose(np.asarray(img_sh), np.asarray(ref.image),
-                               atol=3e-5, rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(trans_sh),
-                               np.asarray(ref.transmittance), atol=3e-5)
-
-
-def test_sharded_bucket_overflow_propagates(scene):
-    """A band whose fine window exceeds the cap must flip the replicated
-    overflow flag (honesty under sharding, not just single-chip)."""
-    cfg, _, cam = scene
-    splats = random_splats(jax.random.key(4), 3000, sh_degree=1,
-                           scale_range=(-4.5, -3.5))
-    mesh = make_mesh(8)
-    small = _bucket(cfg, caps=(128, 128, 128, 128))
-    _, _, ov = render_3dgs_sharded(splats, cam, small, 0, mesh)
-    big = _bucket(cfg, caps=(1024, 128, 128, 128))
-    _, _, ov_big = render_3dgs_sharded(splats, cam, big, 0, mesh)
-    assert bool(ov)
-    assert not bool(ov_big)
 
 
 def test_sharded_train_step(scene):
@@ -88,28 +49,12 @@ def test_sharded_train_step(scene):
     assert float(jnp.abs(s1.opacities - splats.opacities).sum()) > 0
 
 
-def test_sharded_train_step_bucket(scene):
-    """Sharded training through the bucket kernel's custom-VJP backward."""
+def test_sharded_grads_match_single_device(scene):
+    """Band-sharded backward == single-device backward."""
     cfg, splats, cam = scene
-    bcfg = _bucket(cfg)
+    bcfg = cfg
     mesh = make_mesh(8)
     target = jnp.zeros((cfg.height, cfg.width, 3))
-    s1, l1 = train_step_sharded(splats, cam, target, bcfg, 0, mesh, lr=1e-4)
-    s2, l2 = train_step_sharded(s1, cam, target, bcfg, 0, mesh, lr=1e-4)
-    assert float(l2) < float(l1)
-    assert float(jnp.abs(s1.opacities - splats.opacities).sum()) > 0
-
-
-def test_sharded_bucket_grads_match_single_device(scene):
-    """Band-sharded bucket backward == single-device bucket backward."""
-    cfg, splats, cam = scene
-    bcfg = _bucket(cfg)
-    mesh = make_mesh(8)
-    target = jnp.zeros((cfg.height, cfg.width, 3))
-
-    from vk_gaussian_splatting_tpu.parallel.sharded_render import (
-        _gather_proj,  # noqa: F401 — ensure import side effects stay local
-    )
 
     def loss_single(s):
         img = render_3dgs(s.prepare(), cam, bcfg).image
@@ -133,9 +78,8 @@ def test_sharded_gut_matches_single_device(scene):
     cfg, splats, cam = scene
     mesh = make_mesh(8)
     img_sh, _, _ = render_3dgut_sharded(splats, cam, cfg, max_pairs=1 << 14,
-                                        mesh=mesh, interpret=True)
-    ref = render_3dgut(splats.prepare(), cam, cfg, max_pairs=1 << 14,
-                       interpret=True)
+                                        mesh=mesh)
+    ref = render_3dgut(splats.prepare(), cam, cfg, max_pairs=1 << 14)
     np.testing.assert_allclose(np.asarray(img_sh), np.asarray(ref.image),
                                atol=2e-3)
 
@@ -156,30 +100,6 @@ def test_sharded_grt_matches_single_device(scene):
                                np.asarray(ref.transmittance), atol=3e-5)
 
 
-def test_sharded_grt_bucket_matches_single_device(scene):
-    """Sharded 3DGRT through the bucket kernel (radial depth override rides
-    the binning sort and the in-kernel merge key)."""
-    from vk_gaussian_splatting_tpu.parallel import render_3dgrt_sharded
-    from vk_gaussian_splatting_tpu.render.pipelines import render_3dgrt
-
-    cfg, splats, cam = scene
-    bcfg = _bucket(cfg)
-    ref = render_3dgrt(splats.prepare(), cam, bcfg)
-    mesh = make_mesh(8)
-    img, trans, ov = render_3dgrt_sharded(splats, cam, bcfg, 0, mesh)
-    assert not bool(ov)
-    # gut3d evaluates the exact 3D ray response anywhere in a tile's window,
-    # and the band-local bucket grid draws different mid/coarse window
-    # boundaries than the full-image grid — tails just outside the extent
-    # rect differ in membership (measured max 3.3e-3 on 0.12% of pixels),
-    # same bound family as test_bucket_matches_pairs_3dgut
-    d = np.abs(np.asarray(img) - np.asarray(ref.image))
-    assert d.max() < 2e-2
-    assert (d > 1e-3).mean() < 0.01
-    dt = np.abs(np.asarray(trans) - np.asarray(ref.transmittance))
-    assert dt.max() < 2e-2
-
-
 def test_sharded_band_padding_non_divisible():
     """tiles_y (5) not divisible by the mesh (8): bands pad and the result
     crops back to the image height, matching single-device."""
@@ -195,16 +115,15 @@ def test_sharded_band_padding_non_divisible():
                                atol=2e-5)
 
 
-def test_sharded_bucket_band_padding_non_divisible():
+def test_sharded_train_step_non_divisible_height():
+    """1080p-style heights: the bands overhang the image (5 tile rows over
+    8 devices), so the step pads the target with empty rows."""
     cfg = RenderConfig(width=64, height=80, sh_degree=1)
-    bcfg = _bucket(cfg, caps=(256, 256, 128, 128))  # scene req (143,156,28,28)
-    splats = random_splats(jax.random.key(2), 200, sh_degree=1,
+    splats = random_splats(jax.random.key(3), 200, sh_degree=1,
                            scale_range=(-3.0, -1.0))
     cam = look_at([0, 0, -9], [0, 0, 0], [0, 1, 0], cfg.width, cfg.height)
-    ref = render_3dgs(splats.prepare(), cam, bcfg)
     mesh = make_mesh(8)
-    img, trans, ov = render_3dgs_sharded(splats, cam, bcfg, 0, mesh)
-    assert img.shape == (80, 64, 3)
-    assert not bool(ov)
-    np.testing.assert_allclose(np.asarray(img), np.asarray(ref.image),
-                               atol=2e-5)
+    target = jnp.zeros((cfg.height, cfg.width, 3))
+    s1, l1 = train_step_sharded(splats, cam, target, cfg, 0, mesh, lr=1e-4)
+    _, l2 = train_step_sharded(s1, cam, target, cfg, 0, mesh, lr=1e-4)
+    assert np.isfinite(float(l1)) and float(l2) < float(l1)

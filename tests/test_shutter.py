@@ -68,7 +68,7 @@ def test_rolling_shutter_render_finite():
                        shutter=ShutterType.ROLLING_LEFT_TO_RIGHT)
     splats = random_splats(jax.random.key(2), 300, sh_degree=0).prepare()
     cam = _cam_pair(cfg, shift=0.5)
-    out = render_3dgut(splats, cam, cfg, max_pairs=1 << 16, interpret=True)
+    out = render_3dgut(splats, cam, cfg, max_pairs=1 << 16)
     img = np.asarray(out.image)
     assert np.isfinite(img).all()
     assert img.max() > 0.0

@@ -1,10 +1,11 @@
-"""TPU-native differentiable 3D Gaussian Splatting framework.
+"""Differentiable 3D Gaussian Splatting framework in JAX.
 
-A from-scratch JAX / Pallas / pjit re-design of the capabilities of
+A from-scratch JAX / Pallas re-design of the capabilities of
 nvpro-samples/vk_gaussian_splatting (see SURVEY.md): 3DGS tile rasterization,
 3DGUT unscented-transform rasterization, 3DGRT ray-traced Gaussians, hybrid and
 stochastic variants — as pure, jittable, differentiable functions over a
-multi-instance splat-set scene model, sharded across TPU meshes.
+multi-instance splat-set scene model, shardable across device meshes; the
+tile blender runs as a Pallas-Triton kernel on NVIDIA GPUs.
 
 Layout:
   io/        PLY / SPZ / .splat / OBJ / cameras.json / project JSON loaders

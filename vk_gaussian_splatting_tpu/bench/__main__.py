@@ -26,14 +26,16 @@ def main(argv=None):
                     help="write the per-sequence CSV report here")
     ap.add_argument("--chart", type=str, default="",
                     help="write the stacked per-stage chart (PNG) here")
-    ap.add_argument("--method", type=str, default="",
-                    help="override raster.method (bucket | pairs)")
     ap.add_argument("scene", type=str)
     args = ap.parse_args(argv)
 
     import jax
     import numpy as np
 
+    from vk_gaussian_splatting_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+    enable_compile_cache()
     from vk_gaussian_splatting_tpu.bench.sequencer import (
         BenchmarkSequencer,
         parse_sequence_file,
@@ -68,10 +70,6 @@ def main(argv=None):
         print(msg)
 
     seq = BenchmarkSequencer(splats, w, h, cam, out=tee)
-    if args.method:
-        import dataclasses
-        seq.cfg = seq.cfg.replace(raster=dataclasses.replace(
-            seq.cfg.raster, method=args.method))
     seq.run(parse_sequence_file(args.sequencefile))
 
     if args.csv:

@@ -15,7 +15,7 @@ gaussian_splatting_ui.cpp:63-83): pipeline, shformat, maxShDegree,
 kernelDegree, sequenceframes/averages/resetframes, updateData, screenshot,
 benchmark. Vulkan-only acceleration-structure switches (useAABBs,
 useTlasInstances, compressBlas, extentProjection) are accepted and ignored —
-there is no BLAS/TLAS on TPU (noted to stdout once).
+there is no BLAS/TLAS here (noted to stdout once).
 """
 
 from __future__ import annotations
@@ -118,7 +118,7 @@ class BenchmarkSequencer:
             elif key in _IGNORED:
                 if not self._warned_ignored:
                     self.out(f"note: ignoring Vulkan-only parameter --{key} "
-                             "(no acceleration structures on TPU)")
+                             "(no acceleration structures here)")
                     self._warned_ignored = True
             else:
                 self.out(f"note: unknown parameter --{key} ignored")
@@ -184,28 +184,10 @@ class BenchmarkSequencer:
                         else gut_attr_rows)(prepared, proj, cfg)
             return (gs_attr_rows_packed if packed else gs_attr_rows)(proj)
 
-        if cfg.raster.method == "bucket":
-            from vk_gaussian_splatting_tpu.ops.bucket_grid import (
-                bucket_splats,
-            )
-            from vk_gaussian_splatting_tpu.ops.raster_bucket import buf_rows
-            model = (("gut3dp" if packed else "gut3d") if gut
-                     else ("gs2dp" if packed else "gs2d"))
-
-            def sort(prepared, proj):
-                bins = bucket_splats(
-                    proj, rows_fn(prepared, proj),
-                    tiles_x=tiles_x(cfg), tiles_y=tiles_y(cfg),
-                    caps=tuple(cfg.raster.bucket_caps),
-                    rows_to=buf_rows(model))
-                return bins.bucket_starts
-        else:
-            def sort(prepared, proj):
-                from vk_gaussian_splatting_tpu.render.pipelines import (
-                    bin_for_cfg,
-                )
-                return bin_for_cfg(proj, rows_fn(prepared, proj), cfg,
-                                   max_pairs).pair_splat
+        def sort(prepared, proj):
+            from vk_gaussian_splatting_tpu.render.pipelines import bin_for_cfg
+            return bin_for_cfg(proj, rows_fn(prepared, proj), cfg,
+                               max_pairs).pair_splat
 
         def frame(prepared, cam):
             return render(prepared, cam, cfg, max_pairs)
@@ -255,7 +237,7 @@ class BenchmarkSequencer:
         timers.add("Frame", (time.perf_counter() - t0) / reps)
         self.memstats.account_raster(
             self.max_pairs, tiles_x(self.cfg) * tiles_y(self.cfg),
-            self.cfg.raster.chunk, self.prepared.num_splats)
+            self.prepared.num_splats)
         if self.cfg.pipeline in (Pipeline.RTX, Pipeline.HYBRID,
                                  Pipeline.HYBRID_3DGUT):
             self.memstats.account_raytracing(

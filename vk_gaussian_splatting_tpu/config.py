@@ -2,7 +2,7 @@
 
 The reference specializes device code by regenerating ~30 shader ``#define``s and
 recompiling Slang on any parameter change (gaussian_splatting.cpp:1651-1715,
-``updateSlangMacros``).  The TPU-native equivalent is a frozen, hashable
+``updateSlangMacros``).  The equivalent here is a frozen, hashable
 dataclass passed as a static argument to ``jax.jit`` — each distinct config
 traces and compiles its own XLA program, cached by the config value exactly like
 the reference's shader-macro recompile cache.
@@ -58,7 +58,7 @@ class ShutterType(enum.IntEnum):
 class SortMethod(enum.IntEnum):
     """GPU vs CPU sorting (reference: vrdx radix sort vs SplatSorterAsync)."""
 
-    DEVICE = 0  # on-device sort (lax.sort / Pallas radix) — reference "GPU sort"
+    DEVICE = 0  # on-device sort (lax.sort) — reference "GPU sort"
     HOST = 1    # numpy argsort on host, indices shipped to device — reference "CPU sort"
 
 
@@ -83,34 +83,9 @@ class RasterConfig:
     """Tile rasterizer parameters (prmRaster, parameters.h:180-214)."""
 
     tile_size: int = 16
-    chunk: int = 128             # pairs blended per tile-loop iteration (VMEM chunk)
-    bucket_chunk: int = 384      # bucket-kernel blend chunk. The blend is
-                                 # the frame's dominant term (139 of 209 ms
-                                 # at 1080p/1M) and its cost scales with
-                                 # the WINDOW lanes processed: finer chunks
-                                 # quantize each tile's live window
-                                 # tighter, against a per-region fixed
-                                 # cost. r5 sweep on the driver scene:
-                                 # 128 -> 189.7, 256 -> 173.5,
-                                 # 384 -> 171.1 (min, default),
-                                 # 768 -> 209 ms; a partial x128 tail
-                                 # chunk covers any cap total
-                                 # (_chunk_bounds)
+    chunk: int = 16              # pairs per tile-blend step (a power of two <= 128)
     slots_k: int = 16            # max tiles per splat in slot expansion
     expansion: str = "slots"     # "slots" (fast, capped) | "exact" (searchsorted)
-    # binning architecture: "bucket" sorts N splats once into shifted
-    # class-pyramid buckets and lets the tile kernel merge its 2x2-cell
-    # windows in VMEM (ops/bucket_grid.py — the fast path); "pairs"
-    # materializes (splat, tile) pairs and sorts P rows (ops/binning.py —
-    # the differentiable path until the bucket backward lands)
-    method: str = "pairs"
-    # per-class window-span capacities (fine, mid pair, coarse pair, global)
-    # for the bucket kernel's static VMEM budget; multiples of 128 (all
-    # powers of two => the kernel's odd-even merge tree applies). The
-    # default sums to a 2304-lane candidate buffer (fine + 2 mid + 2 coarse
-    # + global spans), sized for trained-scene screen statistics at 1080p/1M
-    # (scripts/profile_binning.py measures per-class span occupancy)
-    bucket_caps: tuple = (512, 256, 512, 256)
     extent_sigma: float = 2.8284271247461903  # sqrt(8) std-devs (threedgs.h.slang stdDev)
     max_basis_px: float = 2048.0  # extent clamp (threedgs.h.slang:117-118)
     dilation: float = 0.3         # low-pass dilation (threedgs.h.slang:69-70)
@@ -175,7 +150,7 @@ class RtConfig:
     shadow_color_strength: float = 0.0
     # NOTE: the reference's k_buffer (PARTICLES_SPP sorted hits per pass,
     # gaussian_splatting.cpp:1693) and use_aabbs (AS proxy shape) have no
-    # TPU analog — there is no BVH payload or acceleration structure; the
+    # analog here — there is no BVH payload or acceleration structure; the
     # windowed t-slab march is the ordering mechanism instead.
 
 

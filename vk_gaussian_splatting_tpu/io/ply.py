@@ -5,7 +5,7 @@ Replaces miniply + the reference's property extraction
 (x y z [nx ny nz] f_dc_0..2 f_rest_0..44 opacity scale_0..2 rot_0..3) from
 binary little-endian or ascii PLY via one numpy structured-dtype read — the
 whole payload parses as a single vectorized view, no per-row loop (the
-TPU-host analog of miniply's speed).
+host-side analog of miniply's speed).
 
 Like the reference, coordinates convert RDF (PLY) -> RUB on load
 (ply_loader_async.cpp:440, splat_set.h:78).

@@ -1,11 +1,10 @@
-"""Tile binning: splat -> (tile, depth)-sorted attribute lists + blend schedule.
+"""Tile binning: splat -> (tile, depth)-sorted attribute lists + segments.
 
 The reference builds per-frame visible-splat lists with GPU atomics + indirect
 dispatch (dist.comp.slang:136-153); tile rasterization needs each splat
-duplicated into every 16x16 tile its extent covers. TPU/XLA forbids dynamic
-shapes and atomics — and, measured on v5e, *random gathers and searchsorted
-are 10-60x slower than sorts and scans*. The design therefore avoids
-per-pair gathers entirely:
+duplicated into every 16x16 tile its extent covers. Under jit every shape is
+static, so pairs live in a fixed-size array, and the design carries every
+attribute through one sort instead of gathering per pair:
 
 1. **slot expansion**: every splat broadcasts its attribute row to K
    contiguous tile-slots (pure reshape/broadcast — no searchsorted); the
@@ -17,18 +16,19 @@ per-pair gathers entirely:
    replaces the earlier depth-presort + stable tile sort: XLA lowers a
    stable sort by appending an iota tiebreak operand, so the unstable
    two-key sort has the same operand count as the stable one-key sort had,
-   and the N-level presort disappears entirely. Payload width is the sort's
-   cost driver (measured at 16M rows: ~54ms + ~13ms/payload), so nothing
-   redundant rides along: the splat id is NOT a separate payload — by
-   convention the LAST attribute row is the splat id (ops/response.py
-   ID_ROW is last in every layout) and pair_splat derives from it;
-3. a small **blend schedule** replaces physical chunk alignment: each step is
-   (tile, 128-lane block, lane range) so segments may start mid-block; the
-   Pallas kernel DMAs blocks at provably-aligned offsets and masks lanes.
-   Shared boundary blocks simply appear in two steps.
+   and the N-level presort disappears entirely. Payload width drives the
+   sort's cost, so nothing redundant rides along: the splat id is NOT a
+   separate payload — by convention the LAST attribute row is the splat id
+   (ops/response.py ID_ROW is last in every layout) and pair_splat derives
+   from it;
+3. per-tile **segments**: tile t owns [seg_starts[t], seg_starts[t] +
+   seg_counts[t]) of the sorted pairs; the blenders (ops/tile_blend.py) walk
+   each segment from there. At least ``chunk`` padding columns follow the
+   last live pair, so a blender may load a whole chunk past any live
+   position without leaving the array.
 
 Everything is O(P log P) sort + O(P) scans; the only searchsorted runs on
-schedule-sized arrays (tens of thousands), not pairs.
+tile-count arrays, not pairs.
 """
 
 from __future__ import annotations
@@ -41,34 +41,14 @@ import jax.numpy as jnp
 
 from vk_gaussian_splatting_tpu.ops.projection import ProjectedSplats
 
-NUM_ATTRS = 16  # widest layout (gut3d); attrs carry exactly the model's rows
-
-# XLA's TPU sort cost is flat in operand count up to 14 operands, then
-# jumps ~3x. Sorts with more operands split into several sorts on the same
-# key(s); each split then needs stability (the identical permutation across
-# splits), which XLA implements by appending an iota operand.
-MAX_SORT_OPS = 14
-
-
 def _key_sort(keys: tuple, payloads: tuple, is_stable: bool = False):
-    """Multi-key sort carrying payloads, split into cliff-sized pieces
-    (see MAX_SORT_OPS). Single-piece sorts stay unstable (one fewer internal
-    operand); split sorts force stability so every piece applies the same
-    permutation."""
+    """Multi-key sort carrying payloads: one ``lax.sort`` over every operand
+    (on the GPU it measured no slower than splitting the payloads across
+    several stable sorts — PERF.md)."""
     nk = len(keys)
-    max_pay = MAX_SORT_OPS - nk
-    if len(payloads) <= max_pay:
-        res = jax.lax.sort(keys + tuple(payloads), num_keys=nk,
-                           is_stable=is_stable)
-        return res[:nk], res[nk:]
-    out = []
-    skeys = None
-    for i in range(0, len(payloads), max_pay):
-        res = jax.lax.sort(keys + tuple(payloads[i:i + max_pay]),
-                           num_keys=nk, is_stable=True)
-        skeys = res[:nk]
-        out.extend(res[nk:])
-    return skeys, tuple(out)
+    res = jax.lax.sort(keys + tuple(payloads), num_keys=nk,
+                       is_stable=is_stable)
+    return res[:nk], res[nk:]
 
 
 def _stable_key_sort(key: jax.Array, payloads: tuple):
@@ -81,41 +61,15 @@ def _stable_key_sort(key: jax.Array, payloads: tuple):
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass
 class TileBins:
-    """Sorted pair attributes + the blend schedule for the tile kernel."""
+    """Sorted pair attributes + per-tile segments for the tile blenders."""
 
-    attrs: jax.Array        # (16, P) pair attributes in (tile, depth) order
+    attrs: jax.Array        # (R, P) pair attributes in (tile, depth) order
     pair_splat: jax.Array   # (P,) i32 source splat per sorted pair
     pair_valid: jax.Array   # (P,) bool live pair
-    seg_starts: jax.Array   # (T,) i32 segment starts (unaligned)
+    seg_starts: jax.Array   # (T,) i32 segment starts
     seg_counts: jax.Array   # (T,) i32 per-tile pair counts
-    sched_word: jax.Array   # (S,) i32 packed step: tile|lo|hi|first|last
-    sched_block: jax.Array  # (S,) i32 step 128-lane block index
     num_pairs: jax.Array    # () i32 live pair count
-    overflow: jax.Array     # () bool — slot/schedule budget truncated
-
-    # packed-word layout (SMEM is ~1MB; six arrays at schedule scale blew it):
-    #   word = (tile << 17) | (lo << 10) | (hi << 2) | (first << 1) | last
-    # tile 14 bits (sentinel 0x3FFF = idle), lo 7 bits, hi 8 bits.
-    @property
-    def sched_tile(self):
-        t = self.sched_word >> 17
-        return jnp.where(t == 0x3FFF, -1, t)
-
-    @property
-    def sched_lo(self):
-        return (self.sched_word >> 10) & 0x7F
-
-    @property
-    def sched_hi(self):
-        return (self.sched_word >> 2) & 0xFF
-
-    @property
-    def sched_first(self):
-        return (self.sched_word >> 1) & 1
-
-    @property
-    def sched_last(self):
-        return self.sched_word & 1
+    overflow: jax.Array     # () bool — slot/pair budget truncated
 
 
 def tile_rect(xy: jax.Array, radius: jax.Array, tile_size: int,
@@ -136,13 +90,6 @@ def tile_rect(xy: jax.Array, radius: jax.Array, tile_size: int,
     return x0, y0, x1, y1
 
 
-def schedule_capacity(pair_budget: int, num_tiles: int, chunk: int) -> int:
-    """Static schedule length: every live block + at most one shared-boundary
-    step per tile. Bounded by a live-pair budget so the packed schedule fits
-    SMEM (~1 MB)."""
-    return -(-pair_budget // chunk) + num_tiles
-
-
 def _class_caps(n: int):
     """(cap_g, cap_m) rank-ladder boundaries: columns [0, cap_g) get the
     giant window, [cap_g, cap_m) the mid window, [cap_m, n) the small one.
@@ -160,10 +107,9 @@ def _bin_impl(
     tile_size: int,
     tiles_x: int,
     tiles_y: int,
-    chunk: int = 128,
+    chunk: int = 128,              # pair-array padding granularity
     slots_k: int = 16,
     max_pairs: int = 0,            # exact mode pair budget (0 = slots mode)
-    sched_budget: int = 0,         # live-pair bound for the schedule (0=auto)
     front_to_back: bool = True,
     expansion: str = "slots",
     classes: bool = True,          # class-based slot budgets (see 2a)
@@ -174,9 +120,6 @@ def _bin_impl(
                                    # exact past 2^24 — ops/response.py)
 ):
     num_tiles = tiles_x * tiles_y
-    if num_tiles >= 0x3FFF:
-        raise ValueError("packed schedule supports < 16383 tiles; shard the "
-                         "image into bands (parallel/sharded_render)")
     n = proj.xy.shape[0]
     r = attr_rows.shape[0]
 
@@ -237,7 +180,7 @@ def _bin_impl(
                                              k_m)
             overflow = jnp.any(trunc)
             p_raw = n * k_m
-            p_total = -(-p_raw // chunk) * chunk
+            p_total = padded_pairs(p_raw, chunk)
             pad = p_total - p_raw
 
             def bcast(a):
@@ -293,7 +236,7 @@ def _bin_impl(
             overflow = jnp.any(tr_g) | jnp.any(tr_m) | jnp.any(tr_a)
 
             p_raw = cap_g * k_g + (cap_m - cap_g) * k_m + (n - cap_m) * k_a
-            p_total = -(-p_raw // chunk) * chunk
+            p_total = padded_pairs(p_raw, chunk)
             pad = p_total - p_raw
 
             def bcast(row):
@@ -317,12 +260,13 @@ def _bin_impl(
         # pair position: the bwd un-permutes d_attrs by sorting on this
         # payload, then per-region reshape-sums yield per-splat gradients
         # (inverting a sort via its transpose would lower to pair-count
-        # scatters, 10x slower than one more payload)
+        # scatters)
         pos0 = jnp.arange(p_total, dtype=jnp.int32)
     else:
         # ---- 2b. exact expansion (searchsorted; slow but uncapped) -------
         assert max_pairs > 0, "exact expansion needs a max_pairs budget"
         max_pairs = -(-max_pairs // chunk) * chunk
+        p_total = padded_pairs(max_pairs, chunk)
         w = jnp.maximum(x1 - x0, 0)
         h = jnp.maximum(y1 - y0, 0)
         counts = jnp.where(valid0, w * h, 0).astype(jnp.int32)
@@ -330,19 +274,18 @@ def _bin_impl(
             [jnp.zeros((1,), jnp.int32), jnp.cumsum(counts)[:-1]])
         total = starts[-1] + counts[-1]
         overflow = total > max_pairs
-        p_total = max_pairs
         p = jnp.arange(p_total, dtype=jnp.int32)
         s = jnp.clip(jnp.searchsorted(starts, p, side="right") - 1, 0, n - 1)
         rank = p - starts[s]
         ws = jnp.maximum(w[s], 1)
         tx = x0[s] + rank % ws
         ty = y0[s] + rank // ws
-        pv = p < total
+        pv = p < jnp.minimum(total, max_pairs)
         tile_f = jnp.where(pv, ty * tiles_x + tx, num_tiles).astype(jnp.int32)
         depth_f = dkey[s]
         pair_rows = tuple(row[s] for row in attr_rows)
         pos0 = jnp.arange(p_total, dtype=jnp.int32)  # unused (autodiff path)
-        num_pairs = jnp.minimum(total, p_total)
+        num_pairs = jnp.minimum(total, max_pairs)
         sids = None
 
     # ---- 3. one unstable (tile, depth) two-key sort, attrs as payloads ----
@@ -356,13 +299,7 @@ def _bin_impl(
         pos_sorted = None
         rows_sorted = sorted_pairs
 
-    # Mosaic HBM slices must be 8-sublane aligned: the blender DMAs
-    # (rows, chunk) blocks, so the row count pads to NUM_ATTRS=16 (the only
-    # multiple of 8 covering every layout). Pad rows are never read.
-    parts = [jnp.stack(rows_sorted, axis=0)]
-    if r < NUM_ATTRS:
-        parts.append(jnp.zeros((NUM_ATTRS - r, p_total), jnp.float32))
-    attrs = jnp.concatenate(parts, axis=0)
+    attrs = jnp.stack(rows_sorted, axis=0)
 
     pair_valid = tile_sorted < num_tiles
     # last attribute row is the splat id by convention (see module
@@ -372,52 +309,11 @@ def _bin_impl(
         else rows_sorted[r - 1].astype(jnp.int32)
     splat_sorted = jnp.where(pair_valid, sid_sorted, 0)
 
-    # ---- 4. per-tile segments + blend schedule (small arrays only) ---------
+    # ---- 4. per-tile segments (small arrays only) --------------------------
     tile_starts = jnp.searchsorted(
         tile_sorted, jnp.arange(num_tiles + 1, dtype=jnp.int32), side="left"
     ).astype(jnp.int32)
     seg_counts = tile_starts[1:] - tile_starts[:-1]
-
-    first_block = tile_starts[:-1] // chunk
-    last_block = jnp.maximum(tile_starts[1:] - 1, tile_starts[:-1]) // chunk
-    nsteps_t = jnp.where(seg_counts > 0, last_block - first_block + 1, 0)
-    step_starts = jnp.concatenate(
-        [jnp.zeros((1,), jnp.int32), jnp.cumsum(nsteps_t)]).astype(jnp.int32)
-    s_total = step_starts[-1]
-
-    if sched_budget <= 0:
-        # cover realistic pair counts (~8/splat at 1080p) without truncation;
-        # the hard ceiling keeps the two schedule arrays inside ~0.7MB of
-        # SMEM (s_cap * 2 * 4B)
-        smem_cap = max((90_000 - num_tiles) * chunk, 1 << 20)
-        sched_budget = min(p_total, max(8 * n, 1 << 20), smem_cap)
-    s_cap = schedule_capacity(min(sched_budget, p_total), num_tiles, chunk)
-    overflow = overflow | (s_total > s_cap)
-    s_live = jnp.minimum(s_total, s_cap)
-    sidx = jnp.arange(s_cap, dtype=jnp.int32)
-    seg = jnp.clip(
-        jnp.searchsorted(step_starts, sidx, side="right").astype(jnp.int32) - 1,
-        0, num_tiles - 1)
-    kstep = sidx - step_starts[seg]
-    block = first_block[seg] + kstep
-    lo = jnp.maximum(tile_starts[seg] - block * chunk, 0)
-    hi = jnp.minimum(tile_starts[seg + 1] - block * chunk, chunk)
-    live = sidx < s_live
-    tile_field = jnp.where(live, seg, 0x3FFF)
-    first = (live & (kstep == 0)).astype(jnp.int32)
-    # a truncated schedule (s_total > s_cap) must still flush the boundary
-    # tile's accumulator on its final IN-BUDGET step, or the kernel never
-    # writes that tile and assemble_image passes uninitialized HBM through
-    last = (live & ((kstep == nsteps_t[seg] - 1)
-                    | (sidx == s_live - 1))).astype(jnp.int32)
-    # tiles whose steps all fall past the budget are never written by the
-    # kernel: zero their counts so assemble_image masks them to background
-    seg_counts = jnp.where(step_starts[:-1] < s_live, seg_counts, 0)
-    word = ((tile_field << 17)
-            | (jnp.where(live, lo, 0) << 10)
-            | (jnp.where(live, hi, 0) << 2)
-            | (first << 1) | last).astype(jnp.int32)
-    sched_block = jnp.where(live, block, 0).astype(jnp.int32)
 
     bins = TileBins(
         attrs=attrs,
@@ -425,12 +321,16 @@ def _bin_impl(
         pair_valid=pair_valid,
         seg_starts=tile_starts[:-1],
         seg_counts=seg_counts,
-        sched_word=word,
-        sched_block=sched_block,
         num_pairs=num_pairs,
         overflow=overflow,
     )
     return bins, pos_sorted, sids
+
+
+def padded_pairs(p_raw: int, chunk: int = 128) -> int:
+    """Pair-array length: p_raw rounded up to chunk, plus one chunk of
+    padding that sorts behind every live pair."""
+    return -(-p_raw // chunk) * chunk + chunk
 
 
 def _zero_cotangent(tree):
@@ -447,13 +347,13 @@ def _bin_slots(proj, attr_rows, statics):
     """Slots-mode binning with a sort-based backward.
 
     Autodiff through the fwd sorts would transpose them into pair-count
-    scatters (the 16M-scatter path measured ~2s); instead the bwd sorts
+    scatters; instead the bwd sorts
     d_attrs back to broadcast order by the carried pair position, then
     per-region (m, k) reshape-sums over the slots yield class-sorted
     per-splat gradients, un-sorted to splat order by the carried ids. No
     gradient flows through proj here: tile/slot assignment is discrete and
     sort-key cotangents vanish (sorted keys are discarded), so every
-    differentiable quantity reaches the kernel via attr_rows.
+    differentiable quantity reaches the blender via attr_rows.
     """
     bins, _, _ = _bin_impl(proj, attr_rows, need_pos=False, **dict(statics))
     return bins
@@ -478,11 +378,11 @@ def _bin_slots_fwd(proj, attr_rows, statics):
 def _bin_slots_bwd(statics, res, d_bins):
     pos_sorted, sids, proj, r, n = res
     # the last two attribute rows are (depth, id) by layout convention
-    # (ops/response.py) and the kernel backward never produces cotangents
-    # for them (aux picks are not differentiated) — skipping them keeps the
-    # un-sorts under the operand cliff
+    # (ops/response.py) and the blender backward never produces cotangents
+    # for them (aux picks are not differentiated) — skipping them keeps two
+    # payloads out of the un-sorts
     rd = r - 2
-    d_attrs = d_bins.attrs                       # (16, P)
+    d_attrs = d_bins.attrs                       # (R, P)
     _, unsorted = _key_sort((pos_sorted,),
                             tuple(d_attrs[i] for i in range(rd)))
     d_pairs = jnp.stack(unsorted, axis=0)        # (rd, P) in emit order
@@ -512,9 +412,8 @@ _bin_slots.defvjp(_bin_slots_fwd, _bin_slots_bwd)
 
 
 @partial(jax.jit, static_argnames=("tile_size", "tiles_x", "tiles_y", "chunk",
-                                   "slots_k", "max_pairs", "sched_budget",
-                                   "front_to_back", "expansion", "classes",
-                                   "wide_id"))
+                                   "slots_k", "max_pairs", "front_to_back",
+                                   "expansion", "classes", "wide_id"))
 def bin_splats(
     proj: ProjectedSplats,
     attr_rows: jax.Array,
@@ -525,7 +424,6 @@ def bin_splats(
     chunk: int = 128,
     slots_k: int = 16,
     max_pairs: int = 0,
-    sched_budget: int = 0,
     front_to_back: bool = True,
     expansion: str = "slots",
     classes: bool = True,
@@ -533,7 +431,7 @@ def bin_splats(
 ) -> TileBins:
     kw = dict(tile_size=tile_size, tiles_x=tiles_x, tiles_y=tiles_y,
               chunk=chunk, slots_k=slots_k, max_pairs=max_pairs,
-              sched_budget=sched_budget, front_to_back=front_to_back,
+              front_to_back=front_to_back,
               expansion=expansion, classes=classes, wide_id=wide_id)
     if expansion == "slots":
         return _bin_slots(proj, attr_rows, tuple(sorted(kw.items())))

@@ -1,6 +1,6 @@
 """EWA splat projection (the 3DGS path).
 
-Re-implements, TPU-vectorized over all splats at once, the per-splat math of the
+Re-implements, vectorized over all splats at once, the per-splat math of the
 reference's raster shaders:
 
 - covariance projection J·W·Σ·Wᵀ·Jᵀ (threedgs.h.slang:26-56,
@@ -74,10 +74,9 @@ def ewa_project_cov(
     degenerate conics before the cull masks them.
 
     Written as struct-of-arrays column arithmetic rather than (N,3,3)
-    einsums: TPU tiling pads a trailing dim of 3 out to 128 lanes, so
-    (N,3,3) intermediates cost 42x their size in HBM (measured 1.9GB for a
-    34MB array at N=1M). Columns tile natively as (8,128) with no waste, and
-    plain f32 FMA needs no precision=HIGHEST workaround.
+    einsums: XLA fuses the columns into elementwise kernels with no small
+    trailing dimensions to pad or transpose, and plain f32 FMA needs no
+    precision=HIGHEST to stay out of TF32.
     """
     x, y, z = p_view[..., 0], p_view[..., 1], p_view[..., 2]
     z = jnp.where(jnp.abs(z) < 1e-6, 1e-6, z)
@@ -236,7 +235,7 @@ def project_point_cols(cam: Camera, x, y, z, cfg: RenderConfig,
     """Column core of the sensor projection: (x, y, z) -> (u, v, valid).
 
     Struct-of-arrays so callers never materialize (..., 3)/(..., 2) stacks
-    (TPU tiling pads a trailing dim of 3 to 128 lanes — 42x HBM waste).
+    (see ewa_project_cov).
     """
     d = cam.distortion
     if cfg.camera_type == CameraType.PINHOLE:
@@ -321,7 +320,7 @@ def ut_project_splats(
         prepared.quats, axis=-1, keepdims=True).clip(1e-12)
     qw, qx, qy, qz = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
     # rotation columns (world-from-canonical R), struct-of-arrays — no
-    # (N,3,3) stack (TPU pads trailing dim 3 to 128 lanes, 42x HBM waste)
+    # (N,3,3) stack
     rcol = (
         (1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy + qw * qz),
          2 * (qx * qz - qw * qy)),

@@ -3,8 +3,9 @@
 The reference marches particle hits per ray through a BVH with a K=18 sorted
 k-buffer and multi-pass tMin advance (threedgrt_raytrace.rgen.slang:615-818),
 and intersects meshes with a closest-hit trace that clips the particle range
-(rgen:495-553). Neither a BVH nor per-ray dynamic marching maps to the TPU;
-this module re-expresses both as dense, statically-shaped batch programs:
+(rgen:495-553). Neither a BVH nor per-ray dynamic marching fits jit's
+static shapes; this module re-expresses both as dense, statically-shaped
+batch programs:
 
 - ``trace_splats``: splats pre-sort ONCE by euclidean distance to the ray
   batch's origin centroid (the radial order the primary 3DGRT path validates
@@ -17,7 +18,7 @@ this module re-expresses both as dense, statically-shaped batch programs:
   windows replace the reference's tMin advance / tMax mesh clip.
 - ``trace_mesh``: brute-force Moller-Trumbore closest hit over face chunks —
   scene meshes are small (OBJ furniture, thousands of faces), so the dense
-  (rays x faces) sweep beats any traversal structure on the VPU.
+  (rays x faces) sweep needs no traversal structure.
 
 Everything is differentiable by construction (no custom VJPs needed: sorts
 carry attributes as payloads, the permutation itself gets no cotangent).
@@ -91,8 +92,8 @@ def _chunk_alpha_t(block, o, d, kernel_degree, alpha_min, alpha_clamp,
     parameter t (R,C). o/d: (R,3) origins and unit directions.
 
     The canonical-frame math of threedgrt.h.slang:57-81 — K<=3 contractions
-    expanded as broadcast FMAs (MXU dot_generals are bf16-grade in-kernel and
-    unnecessary here)."""
+    expanded as broadcast FMAs (exact f32; a dot would run in TF32 on the
+    GPU and is too small to gain anything)."""
     pos = [block[i][None, :] for i in range(3)]            # (1,C)
     scl = [jnp.maximum(block[3 + i][None, :] * splat_scale, 1e-12)
            for i in range(3)]
@@ -235,6 +236,7 @@ def trace_splats(
                 axis=1)
             w = alpha * t_excl * trans[:, None]            # (R, C)
             col = blk[10:13].T                             # (C, 3)
+            # HIGHEST: full f32 (a default f32 product may run in TF32)
             rad = rad + jnp.matmul(w, col,
                                    precision=jax.lax.Precision.HIGHEST)
             t_run = trans * jnp.cumprod(q, axis=1)[:, -1]

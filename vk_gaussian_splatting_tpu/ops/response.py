@@ -11,11 +11,18 @@ Two families, mirroring the reference's raster fragment shaders:
   particle's canonical frame and the kernel evaluates at the minimum
   squared distance.
 
-Both are closed-form elementwise pipelines over (256 pixels, C splats) blocks;
-the tile blender gets gradients through them with in-kernel ``jax.vjp``, so a
-new response model automatically gets a correct backward.
+Both are closed-form elementwise pipelines over (256 pixels, C splats)
+chunks; the tile blenders get gradients through them with ``jax.vjp`` (inside
+the kernel on the GPU), so a new response model automatically gets a correct
+backward.
 
-Attribute-row layouts (shape (16, C) blocks):
+Every function takes ``rows``: one (1, C) vector per attribute row of the
+chunk, indexed by the row numbers below, and ``pix``: one (256, 1) column per
+pixel-context row. No function slices a loaded block, so the same code runs
+inside the Triton kernel (which has no lowering for value slices) and in the
+XLA blender.
+
+Attribute-row layouts:
   gs2d : 0 x, 1 y, 2-4 conic(a,b,c), 5 opacity, 6-8 rgb, 9 depth
   gut3d: 0-2 position, 3-5 scale(linear), 6-8 rgb, 9-12 quat(wxyz, unit),
          13 opacity, 14 depth
@@ -68,9 +75,8 @@ TRI_DEPTH, TRI_ID = 11, 12
 #   w6 sort depth (plain f32)   w7 id (plain f32)
 # opacity gets 16-bit fixed point (1.5e-5 abs) rather than bf16: its error
 # compounds multiplicatively through the transmittance chain. The sort depth
-# stays exact f32: the bucket kernel orders candidates by it in-VMEM, and
-# bf16 depth collisions between stacked near-opaque splats reorder the blend
-# visibly (measured 0.10 max image error on a dense test scene).
+# stays exact f32: it is the blend-order key, and bf16 depth collisions
+# between stacked near-opaque splats would reorder the blend visibly.
 GSP_X, GSP_Y, GSP_AB, GSP_CD, GSP_RG, GSP_BO, GSP_SORTD, GSP_ID = \
     0, 1, 2, 3, 4, 5, 6, 7
 
@@ -78,7 +84,7 @@ GSP_X, GSP_Y, GSP_AB, GSP_CD, GSP_RG, GSP_BO, GSP_SORTD, GSP_ID = \
 def pack2bf16(hi: jax.Array, lo: jax.Array) -> jax.Array:
     """Two f32 -> one f32 word holding (bf16(hi) << 16 | bf16(lo)). The high
     half IS bf16(hi) as an f32 bit pattern (bf16 = truncated f32), so the
-    kernel unpacks with a mask + bitcast — no 16-bit types in Mosaic."""
+    kernel unpacks with a mask + bitcast — no 16-bit types in the kernel."""
     hb = jax.lax.bitcast_convert_type(hi.astype(jnp.bfloat16), jnp.uint16)
     lb = jax.lax.bitcast_convert_type(lo.astype(jnp.bfloat16), jnp.uint16)
     word = (hb.astype(jnp.uint32) << 16) | lb.astype(jnp.uint32)
@@ -128,22 +134,20 @@ def kernel_response(ray_dist_sq: jax.Array, degree: int) -> jax.Array:
     return jnp.exp(-0.5 * d)  # degree 2 (default quadratic)
 
 
-def gs2d_alpha(block, pix, px, py, live, st):
+def gs2d_alpha(rows, pix, px, py, live, st):
     """(256, C) alpha from the 2D conic model. pix unused.
 
-    Stays elementwise on the VPU deliberately: reformulating d as a
-    (256,8)x(8,C) feature contraction puts it on the MXU, where Mosaic's
-    default f32 matmul is bf16-grade (measured 0.4% relative on-chip) —
-    enough to corrupt alphas for small splats (d terms reach ~1e3). Only
-    small-output contractions (e.g. the (C,3) color accumulation) lower to
-    exact f32; precision overrides inside kernels hung the device once.
+    Stays elementwise in f32 deliberately: reformulating d as a
+    (256,8)x(8,C) feature contraction would put it on the tensor cores in
+    TF32 (about three decimal digits) — enough to corrupt alphas for small
+    splats, whose d terms reach ~1e3.
     """
-    x = block[GS_X:GS_X + 1, :]
-    y = block[GS_Y:GS_Y + 1, :]
-    ca = block[GS_CA:GS_CA + 1, :]
-    cb = block[GS_CB:GS_CB + 1, :]
-    cc = block[GS_CC:GS_CC + 1, :]
-    op = block[GS_OPACITY:GS_OPACITY + 1, :]
+    x = rows[GS_X]
+    y = rows[GS_Y]
+    ca = rows[GS_CA]
+    cb = rows[GS_CB]
+    cc = rows[GS_CC]
+    op = rows[GS_OPACITY]
 
     dx = px - x
     dy = py - y
@@ -154,29 +158,29 @@ def gs2d_alpha(block, pix, px, py, live, st):
     return jnp.where(mask, jnp.minimum(a_raw, st.alpha_clamp), 0.0)
 
 
-def _depth_clip(block, pix, alpha, depth_row):
+def _depth_clip(rows, pix, alpha, depth_row):
     """Cull contributions behind the per-pixel depth limit (the FTB mesh depth
     prepass clipping splats, gaussian_splatting.cpp:705-834)."""
-    limit = pix[:, PIX_DEPTH_LIMIT:PIX_DEPTH_LIMIT + 1]     # (256,1)
-    d = block[depth_row:depth_row + 1, :]                   # (1,C)
+    limit = pix[PIX_DEPTH_LIMIT]     # (256,1)
+    d = rows[depth_row]                   # (1,C)
     keep = (limit <= 0.0) | (d < limit)
     return jnp.where(keep, alpha, 0.0)
 
 
-def gs2d_clip_alpha(block, pix, px, py, live, st):
+def gs2d_clip_alpha(rows, pix, px, py, live, st):
     """gs2d with a per-pixel depth limit from the pixel context."""
-    return _depth_clip(block, pix, gs2d_alpha(block, pix, px, py, live, st),
+    return _depth_clip(rows, pix, gs2d_alpha(rows, pix, px, py, live, st),
                        GS_DEPTH)
 
 
-def gs2dp_alpha(block, pix, px, py, live, st):
+def gs2dp_alpha(rows, pix, px, py, live, st):
     """gs2d on the packed layout: unpack (once per splat column, broadcast
     over the 256 pixels) then the identical conic math. pix unused."""
-    x = block[GSP_X:GSP_X + 1, :]
-    y = block[GSP_Y:GSP_Y + 1, :]
-    ca, cb = unpack2bf16(block[GSP_AB:GSP_AB + 1, :])
-    _, op = unpack_bf16_u16(block[GSP_BO:GSP_BO + 1, :])
-    cc, _ = unpack2bf16(block[GSP_CD:GSP_CD + 1, :])
+    x = rows[GSP_X]
+    y = rows[GSP_Y]
+    ca, cb = unpack2bf16(rows[GSP_AB])
+    _, op = unpack_bf16_u16(rows[GSP_BO])
+    cc, _ = unpack2bf16(rows[GSP_CD])
 
     dx = px - x
     dy = py - y
@@ -187,15 +191,15 @@ def gs2dp_alpha(block, pix, px, py, live, st):
     return jnp.where(mask, jnp.minimum(a_raw, st.alpha_clamp), 0.0)
 
 
-def gs2dp_colors(block):
+def gs2dp_colors(rows):
     """(3, C) rgb rows from the packed layout."""
-    r, g = unpack2bf16(block[GSP_RG:GSP_RG + 1, :])
-    b, _ = unpack_bf16_u16(block[GSP_BO:GSP_BO + 1, :])
-    return jnp.concatenate([r, g, b], axis=0)
+    r, g = unpack2bf16(rows[GSP_RG])
+    b, _ = unpack_bf16_u16(rows[GSP_BO])
+    return [r, g, b]
 
 
-def gs2dp_depth(block):
-    return block[GSP_SORTD:GSP_SORTD + 1, :]
+def gs2dp_depth(rows):
+    return rows[GSP_SORTD]
 
 
 # gut3dp rows (packed gut3d): positions stay exact f32 (the canonical-frame
@@ -209,15 +213,15 @@ GUTP_SXY, GUTP_SZW, GUTP_QXY, GUTP_QZD, GUTP_RG, GUTP_BO, GUTP_SORTD, \
     GUTP_ID = 3, 4, 5, 6, 7, 8, 9, 10
 
 
-def gut3dp_alpha(block, pix, px, py, live, st):
+def gut3dp_alpha(rows, pix, px, py, live, st):
     """gut3d on the packed layout: unpack once per splat column, then the
     identical canonical-ray math."""
-    pos = [block[i:i + 1, :] for i in (GUTP_PX, GUTP_PY, GUTP_PZ)]
-    sx, sy = unpack2bf16(block[GUTP_SXY:GUTP_SXY + 1, :])
-    sz, qw = unpack2bf16(block[GUTP_SZW:GUTP_SZW + 1, :])
-    qx, qy = unpack2bf16(block[GUTP_QXY:GUTP_QXY + 1, :])
-    qz, _ = unpack2bf16(block[GUTP_QZD:GUTP_QZD + 1, :])
-    _, op = unpack_bf16_u16(block[GUTP_BO:GUTP_BO + 1, :])
+    pos = [rows[i] for i in (GUTP_PX, GUTP_PY, GUTP_PZ)]
+    sx, sy = unpack2bf16(rows[GUTP_SXY])
+    sz, qw = unpack2bf16(rows[GUTP_SZW])
+    qx, qy = unpack2bf16(rows[GUTP_QXY])
+    qz, _ = unpack2bf16(rows[GUTP_QZD])
+    _, op = unpack_bf16_u16(rows[GUTP_BO])
     # re-normalize the quantized quaternion so R stays a rotation
     qn = jax.lax.rsqrt(qw * qw + qx * qx + qy * qy + qz * qz + 1e-30)
     qw, qx, qy, qz = qw * qn, qx * qn, qy * qn, qz * qn
@@ -230,8 +234,8 @@ def gut3dp_alpha(block, pix, px, py, live, st):
     scl = (sx, sy, sz)
     inv_s = [1.0 / jnp.maximum(s, 1e-12) for s in scl]
 
-    d_pix = [pix[:, i:i + 1] for i in (RAY_DX, RAY_DY, RAY_DZ)]
-    o_pix = [pix[:, i:i + 1] for i in (RAY_OX, RAY_OY, RAY_OZ)]
+    d_pix = [pix[i] for i in (RAY_DX, RAY_DY, RAY_DZ)]
+    o_pix = [pix[i] for i in (RAY_OX, RAY_OY, RAY_OZ)]
     oc, dc = [], []
     for j in range(3):
         o_j = (r[0][j] * (o_pix[0] - pos[0])
@@ -254,17 +258,17 @@ def gut3dp_alpha(block, pix, px, py, live, st):
     return jnp.where(mask, jnp.minimum(a_raw, st.alpha_clamp), 0.0)
 
 
-def gut3dp_colors(block):
-    r, g = unpack2bf16(block[GUTP_RG:GUTP_RG + 1, :])
-    b, _ = unpack_bf16_u16(block[GUTP_BO:GUTP_BO + 1, :])
-    return jnp.concatenate([r, g, b], axis=0)
+def gut3dp_colors(rows):
+    r, g = unpack2bf16(rows[GUTP_RG])
+    b, _ = unpack_bf16_u16(rows[GUTP_BO])
+    return [r, g, b]
 
 
-def gut3dp_depth(block):
-    return block[GUTP_SORTD:GUTP_SORTD + 1, :]
+def gut3dp_depth(rows):
+    return rows[GUTP_SORTD]
 
 
-def tri2d_alpha(block, pix, px, py, live, st):
+def tri2d_alpha(rows, pix, px, py, live, st):
     """Opaque triangle coverage: alpha = 1 inside the triangle, else 0.
 
     With triangles depth-sorted front-to-back, the standard blend makes the
@@ -280,12 +284,12 @@ def tri2d_alpha(block, pix, px, py, live, st):
     edges overlap instead of leaving holes, which is harmless for opaque
     first-wins compositing.
     """
-    x0 = block[TRI_X0:TRI_X0 + 1, :]
-    y0 = block[TRI_Y0:TRI_Y0 + 1, :]
-    x1 = block[TRI_X1:TRI_X1 + 1, :]
-    y1 = block[TRI_Y1:TRI_Y1 + 1, :]
-    x2 = block[TRI_X2:TRI_X2 + 1, :]
-    y2 = block[TRI_Y2:TRI_Y2 + 1, :]
+    x0 = rows[TRI_X0]
+    y0 = rows[TRI_Y0]
+    x1 = rows[TRI_X1]
+    y1 = rows[TRI_Y1]
+    x2 = rows[TRI_X2]
+    y2 = rows[TRI_Y2]
 
     # tile-local pixel coordinates (pixel centers at tile_origin + i + 0.5);
     # vertices arrive absolute and re-center on the tile origin here, so the
@@ -323,14 +327,14 @@ TRIS_C01, TRIS_C23, TRIS_C45, TRIS_C67, TRIS_C8 = 6, 7, 8, 9, 10
 TRIS_Z0, TRIS_Z1, TRIS_Z2, TRIS_ID = 11, 12, 13, 14
 
 
-def _tri_edges(block, px, py):
+def _tri_edges(rows, px, py):
     """Edge functions on tile-recentred coordinates (see tri2d_alpha)."""
-    x0 = block[TRI_X0:TRI_X0 + 1, :]
-    y0 = block[TRI_Y0:TRI_Y0 + 1, :]
-    x1 = block[TRI_X1:TRI_X1 + 1, :]
-    y1 = block[TRI_Y1:TRI_Y1 + 1, :]
-    x2 = block[TRI_X2:TRI_X2 + 1, :]
-    y2 = block[TRI_Y2:TRI_Y2 + 1, :]
+    x0 = rows[TRI_X0]
+    y0 = rows[TRI_Y0]
+    x1 = rows[TRI_X1]
+    y1 = rows[TRI_Y1]
+    x2 = rows[TRI_X2]
+    y2 = rows[TRI_Y2]
     lx = px - 16.0 * jnp.floor(px / 16.0)
     ly = py - 16.0 * jnp.floor(py / 16.0)
     ox = px - lx
@@ -344,45 +348,45 @@ def _tri_edges(block, px, py):
     return e0, e1, e2
 
 
-def _tri_barycentric(block, px, py):
+def _tri_barycentric(rows, px, py):
     """(w0, w1, w2) per (pixel, face): weight of vertex k = the opposite
     edge function, normalized by the signed area (sign cancels)."""
-    e0, e1, e2 = _tri_edges(block, px, py)
+    e0, e1, e2 = _tri_edges(rows, px, py)
     area = e0 + e1 + e2
     inv = 1.0 / jnp.where(jnp.abs(area) < 1e-12, 1.0, area)
     return e1 * inv, e2 * inv, e0 * inv
 
 
-def tri2d_smooth_alpha(block, pix, px, py, live, st):
+def tri2d_smooth_alpha(rows, pix, px, py, live, st):
     """Coverage identical to tri2d (rows 0-5 share the layout)."""
-    return tri2d_alpha(block, pix, px, py, live, st)
+    return tri2d_alpha(rows, pix, px, py, live, st)
 
 
-def tri2d_smooth_pixel_depth(block, px, py):
+def tri2d_smooth_pixel_depth(rows, px, py):
     """(256, C) perspective-correct interpolated view depth
     (threedmesh_raster.vert.slang's hardware z interpolation)."""
-    w0, w1, w2 = _tri_barycentric(block, px, py)
-    z0 = block[TRIS_Z0:TRIS_Z0 + 1, :]
-    z1 = block[TRIS_Z1:TRIS_Z1 + 1, :]
-    z2 = block[TRIS_Z2:TRIS_Z2 + 1, :]
+    w0, w1, w2 = _tri_barycentric(rows, px, py)
+    z0 = rows[TRIS_Z0]
+    z1 = rows[TRIS_Z1]
+    z2 = rows[TRIS_Z2]
     inv_z = (w0 / jnp.maximum(z0, 1e-6) + w1 / jnp.maximum(z1, 1e-6)
              + w2 / jnp.maximum(z2, 1e-6))
     return 1.0 / jnp.maximum(inv_z, 1e-12)
 
 
-def tri2d_smooth_pixel_colors(block, px, py):
+def tri2d_smooth_pixel_colors(rows, px, py):
     """[r, g, b] per (pixel, face): perspective-correct Gouraud interpolation
     of the per-vertex shaded colors (per-vertex normals lit in XLA — the
     vertex-shader stage of threedmesh_raster)."""
-    r0, g0 = unpack2bf16(block[TRIS_C01:TRIS_C01 + 1, :])
-    b0, r1 = unpack2bf16(block[TRIS_C23:TRIS_C23 + 1, :])
-    g1, b1 = unpack2bf16(block[TRIS_C45:TRIS_C45 + 1, :])
-    r2, g2 = unpack2bf16(block[TRIS_C67:TRIS_C67 + 1, :])
-    b2, _ = unpack2bf16(block[TRIS_C8:TRIS_C8 + 1, :])
-    w0, w1, w2 = _tri_barycentric(block, px, py)
-    z0 = jnp.maximum(block[TRIS_Z0:TRIS_Z0 + 1, :], 1e-6)
-    z1 = jnp.maximum(block[TRIS_Z1:TRIS_Z1 + 1, :], 1e-6)
-    z2 = jnp.maximum(block[TRIS_Z2:TRIS_Z2 + 1, :], 1e-6)
+    r0, g0 = unpack2bf16(rows[TRIS_C01])
+    b0, r1 = unpack2bf16(rows[TRIS_C23])
+    g1, b1 = unpack2bf16(rows[TRIS_C45])
+    r2, g2 = unpack2bf16(rows[TRIS_C67])
+    b2, _ = unpack2bf16(rows[TRIS_C8])
+    w0, w1, w2 = _tri_barycentric(rows, px, py)
+    z0 = jnp.maximum(rows[TRIS_Z0], 1e-6)
+    z1 = jnp.maximum(rows[TRIS_Z1], 1e-6)
+    z2 = jnp.maximum(rows[TRIS_Z2], 1e-6)
     a0, a1, a2 = w0 / z0, w1 / z1, w2 / z2
     zp = 1.0 / jnp.maximum(a0 + a1 + a2, 1e-12)
     return [
@@ -392,20 +396,20 @@ def tri2d_smooth_pixel_colors(block, px, py):
     ]
 
 
-def gut3d_alpha(block, pix, px, py, live, st):
+def gut3d_alpha(rows, pix, px, py, live, st):
     """(256, C) alpha from the exact 3D ray response.
 
     pix: (256, 8) per-pixel rays — cols RAY_D* unit direction, RAY_O* origin,
     both already in the splat-set model frame (threedgut_raster.frag.slang:
     115-121 transforms by the instance inverse).
     """
-    pos = [block[i:i + 1, :] for i in (GUT_PX, GUT_PY, GUT_PZ)]
-    scl = [block[i:i + 1, :] for i in (GUT_SX, GUT_SY, GUT_SZ)]
-    qw = block[GUT_QW:GUT_QW + 1, :]
-    qx = block[GUT_QX:GUT_QX + 1, :]
-    qy = block[GUT_QY:GUT_QY + 1, :]
-    qz = block[GUT_QZ:GUT_QZ + 1, :]
-    op = block[GUT_OPACITY:GUT_OPACITY + 1, :]
+    pos = [rows[i] for i in (GUT_PX, GUT_PY, GUT_PZ)]
+    scl = [rows[i] for i in (GUT_SX, GUT_SY, GUT_SZ)]
+    qw = rows[GUT_QW]
+    qx = rows[GUT_QX]
+    qy = rows[GUT_QY]
+    qz = rows[GUT_QZ]
+    op = rows[GUT_OPACITY]
 
     # rotation matrix entries (world-from-canonical R); R^T transforms into
     # the canonical frame (quatToMat3Transpose, threedgrt.h.slang:48-49)
@@ -416,8 +420,8 @@ def gut3d_alpha(block, pix, px, py, live, st):
     ]
     inv_s = [1.0 / jnp.maximum(s, 1e-12) for s in scl]
 
-    d_pix = [pix[:, i:i + 1] for i in (RAY_DX, RAY_DY, RAY_DZ)]   # (256,1)
-    o_pix = [pix[:, i:i + 1] for i in (RAY_OX, RAY_OY, RAY_OZ)]
+    d_pix = [pix[i] for i in (RAY_DX, RAY_DY, RAY_DZ)]   # (256,1)
+    o_pix = [pix[i] for i in (RAY_OX, RAY_OY, RAY_OZ)]
 
     # canonical ray (threedgrt.h.slang:57-75): v_c = (R^T v) / s
     oc = []
@@ -445,10 +449,6 @@ def gut3d_alpha(block, pix, px, py, live, st):
     return jnp.where(mask, jnp.minimum(a_raw, st.alpha_clamp), 0.0)
 
 
-def _row(i):
-    return lambda block: block[i:i + 1, :][0]
-
-
 ALPHA_FNS = {"gs2d": gs2d_alpha, "gs2d_clip": gs2d_clip_alpha,
              "gs2dp": gs2dp_alpha, "gut3d": gut3d_alpha,
              "gut3dp": gut3dp_alpha, "tri2d": tri2d_alpha,
@@ -456,8 +456,8 @@ ALPHA_FNS = {"gs2d": gs2d_alpha, "gs2d_clip": gs2d_clip_alpha,
 USES_PIX_CTX = {"gs2d": False, "gs2d_clip": True, "gs2dp": False,
                 "gut3d": True, "gut3dp": True, "tri2d": False,
                 "tri2d_smooth": False}
-# (1, C) or (C,)-broadcastable extractors the kernel uses for color rows,
-# aux depth picks, and splat-id picks (packed layouts unpack here)
+# extractors the blenders use for color rows ([r, g, b] of (1, C)) and aux
+# depth picks ((1, C)); packed layouts unpack here
 COLOR_FNS = {"gs2dp": gs2dp_colors, "gut3dp": gut3dp_colors}
 DEPTH_FNS = {"gs2dp": gs2dp_depth, "gut3dp": gut3dp_depth}
 DEPTH_ROW = {"gs2d": GS_DEPTH, "gs2d_clip": GS_DEPTH, "gut3d": GUT_DEPTH,
@@ -470,12 +470,12 @@ ID_ROW = {"gs2d": GS_ID, "gs2d_clip": GS_ID, "gut3d": GUT_ID,
 # layouts have no spare row and keep the single-row 2^24 id bound
 ID_HI_ROW = {"gs2d": GS_ID_HI, "gs2d_clip": GS_ID_HI}
 # per-PIXEL attribute models (interpolated rather than per-candidate
-# constant): (block, px, py) -> (256, C) depth / [r, g, b] of (256, C)
+# constant): (rows, px, py) -> (256, C) depth / [r, g, b] of (256, C)
 PIXEL_DEPTH_FNS = {"tri2d_smooth": tri2d_smooth_pixel_depth}
 PIXEL_COLOR_FNS = {"tri2d_smooth": tri2d_smooth_pixel_colors}
 # attr rows per layout — binning carries exactly these through the pair
-# sorts (payload count is the sort cost driver) and the blender DMAs
-# (NUM_ROWS, chunk) blocks
+# sorts (payload count is the sort cost driver) and the blenders load one
+# (chunk,) vector per row
 NUM_ROWS = {"gs2d": GS_ID_HI + 1, "gs2d_clip": GS_ID_HI + 1,
             "gs2dp": GSP_ID + 1,
             "gut3d": GUT_ID + 1, "gut3dp": GUTP_ID + 1,

@@ -108,6 +108,7 @@ def rotate_sh_rest(sh_rest: jax.Array, rotmat) -> jax.Array:
     parts = []
     for lo, cnt, deg in _band_slices(stored_m):
         m = jnp.asarray(band_rotation(rotmat, deg), jnp.float32)
+        # HIGHEST: full f32 (a default f32 product may run in TF32 on GPUs)
         parts.append(jnp.einsum("km,nmc->nkc", m,
                                 sh_rest[:, lo:lo + cnt, :].astype(jnp.float32),
                                 precision=jax.lax.Precision.HIGHEST))
@@ -131,6 +132,7 @@ def eval_sh_radiance(sh_rest: jax.Array, dirs: jax.Array, degree: int) -> jax.Ar
         return jnp.zeros(sh_rest.shape[:1] + (3,), jnp.float32)
     m = {1: 3, 2: 8, 3: 15}[degree]
     basis = sh_basis(dirs, degree)  # (N, m)
+    # HIGHEST: full f32 (a default f32 product may run in TF32 on GPUs)
     return jnp.einsum("nm,nmc->nc", basis,
                       sh_rest[:, :m, :].astype(jnp.float32),
                       precision=jax.lax.Precision.HIGHEST)

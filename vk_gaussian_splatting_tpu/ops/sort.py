@@ -7,9 +7,8 @@ vrdx GPU radix sort (4 LSD passes, 3rdparty/vrdx). Invalid slots use
 0xffffffff keys so they sort last (vrdx upsweep.slang:37) — the same padding
 trick static-shape XLA needs.
 
-On TPU the baseline is ``jax.lax.sort`` over multiple keys (XLA's sort is
-O(n log² n) comparator network but heavily vectorized); a Pallas radix sort can
-swap in behind the same interface later.
+The sort here is ``jax.lax.sort`` over multiple keys; a hand-written radix
+sort could swap in behind the same interface later.
 """
 
 from __future__ import annotations

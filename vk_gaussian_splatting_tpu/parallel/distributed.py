@@ -1,20 +1,20 @@
 """Multi-process (multi-host) entry points.
 
 The reference is a single-GPU app (SURVEY.md §2.4); scaling across hosts is
-new TPU-native scope: ``jax.distributed`` + the shard_map policies of
-parallel/sharded_render.py. This module is the in-repo harness VERDICT
-round-1 item 7 asked for — the one-line init wrapper, global-array plumbing,
-and a runnable multi-process training demo that the 2-process CPU test
-(tests/test_multihost.py) exercises end-to-end over the distributed runtime
-(DCN-path semantics: cross-process collectives), so the same entry point
-works unchanged on a real multi-host TPU slice.
+new scope here: ``jax.distributed`` + the shard_map policies of
+parallel/sharded_render.py. This module holds the one-line init wrapper,
+global-array plumbing, and a runnable multi-process training demo that the
+2-process CPU test (tests/test_multihost.py) exercises end-to-end over the
+distributed runtime (cross-process collectives), so the same entry point
+runs unchanged across several GPU hosts (NCCL between processes).
 
-Usage on a real slice (one command per host):
+Usage, one command per process:
 
     python -m vk_gaussian_splatting_tpu.parallel.distributed \
         --coordinator <host0>:8476 --num-processes N --process-id i
 
-On TPU pods, ``initialize()`` with no arguments autodetects everything.
+No cluster is detected automatically: pass the coordinator address, the
+process count and this process's id.
 """
 
 from __future__ import annotations
@@ -30,9 +30,9 @@ def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None,
                platform: str | None = None) -> None:
-    """jax.distributed bring-up. On TPU pods call with no arguments; for the
-    CPU test harness pass platform="cpu" (set BEFORE touching any jax API,
-    since the site config pins the default platform)."""
+    """jax.distributed bring-up: pass the coordinator address, process count
+    and process id; for the CPU test harness also pass platform="cpu" (set
+    BEFORE touching any jax API)."""
     if platform:
         jax.config.update("jax_platforms", platform)
         if platform == "cpu":

@@ -9,8 +9,8 @@ a ``jax.sharding.Mesh`` here:
   the LargeBuffer replacement; attribute memory scales with devices.
 - **tile sharding** (output axis): each device rasterizes a horizontal band of
   tile rows; the compact projected attributes (~15 f32/splat, far smaller than
-  raw parameters) ride one ``all_gather`` across the mesh (ICI) — the
-  boundary-splat gather of BASELINE.json.
+  raw parameters) ride one ``all_gather`` across the mesh (NCCL over NVLink
+  on a multi-GPU host) — the boundary-splat gather of BASELINE.json.
 - gradients: the all_gather transposes to ``psum_scatter`` automatically under
   ``jax.grad``, so per-splat parameter gradients land sharded exactly like the
   parameters (no replicated-gradient all-reduce needed — splat params are
@@ -32,7 +32,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from vk_gaussian_splatting_tpu.config import RenderConfig, tiles_y
 from vk_gaussian_splatting_tpu.ops.projection import ProjectedSplats, project_splats
-from vk_gaussian_splatting_tpu.ops.rasterize_pallas import (
+from vk_gaussian_splatting_tpu.ops.tile_blend import (
     assemble_image,
     rasterize_bins,
 )
@@ -61,28 +61,19 @@ def _band_rows(cfg: RenderConfig, n_bands: int) -> int:
 
 def _band_raster(shifted: ProjectedSplats, rows, local_cfg: RenderConfig,
                  st, max_pairs: int, pix_ctx=None, depth_override=None):
-    """Blend one band (an ordinary short image) via the configured method.
-
-    method="bucket" routes through the flagship bucket-grid kernel — the
-    band gets its own band-local BucketGridSpec (VERDICT r03 next #3);
-    method="pairs" keeps the round-1 pair schedule. Returns
+    """Blend one band (an ordinary short image). Returns
     (img, trans, overflow)."""
     h_local = st.tiles_y * local_cfg.raster.tile_size
-    if local_cfg.raster.method == "bucket":
-        from vk_gaussian_splatting_tpu.render.pipelines import _render_bucket
-        o = _render_bucket(shifted, rows, local_cfg, st,
-                           depth_override=depth_override, pix_ctx=pix_ctx)
-        return o.image, o.transmittance, o.overflow
     bins = bin_for_cfg(shifted, rows, local_cfg, max_pairs, depth_override)
     out = rasterize_bins(bins, pix_ctx, None, st)
-    img, trans = assemble_image(out, bins.seg_counts, st.tiles_x, st.tiles_y,
+    img, trans = assemble_image(out, st.tiles_x, st.tiles_y,
                                 local_cfg.width, h_local,
                                 local_cfg.background)
     return img, trans, bins.overflow
 
 
 def _render_band(proj: ProjectedSplats, cfg: RenderConfig, max_pairs: int,
-                 band: int, n_bands: int, interpret: bool | None):
+                 band: int, n_bands: int):
     """Rasterize one horizontal band of tile rows against full projected splats."""
     ty_local = _band_rows(cfg, n_bands)
     y_off = (jnp.asarray(band, jnp.float32)
@@ -91,7 +82,7 @@ def _render_band(proj: ProjectedSplats, cfg: RenderConfig, max_pairs: int,
     shifted = dataclasses.replace(
         proj, xy=proj.xy - jnp.stack([jnp.zeros((), jnp.float32), y_off]))
     local_cfg = cfg.replace(height=ty_local * cfg.raster.tile_size)
-    st = dataclasses.replace(raster_statics(cfg, interpret), tiles_y=ty_local)
+    st = dataclasses.replace(raster_statics(cfg), tiles_y=ty_local)
     return _band_raster(shifted, gs_attr_rows(shifted), local_cfg, st,
                         max_pairs)
 
@@ -101,14 +92,13 @@ def _gather_proj(proj: ProjectedSplats, axis: str) -> ProjectedSplats:
     return jax.tree.map(g, proj)
 
 
-@partial(jax.jit, static_argnames=("cfg", "max_pairs", "mesh", "interpret"))
+@partial(jax.jit, static_argnames=("cfg", "max_pairs", "mesh"))
 def render_3dgs_sharded(splats: SplatSet, cam: Camera, cfg: RenderConfig,
-                        max_pairs: int, mesh: Mesh,
-                        interpret: bool | None = None):
+                        max_pairs: int, mesh: Mesh):
     """Forward render with splats sharded over the mesh and the image sharded
     over horizontal bands. Returns (image, transmittance, overflow): the
     band-sharded (H, W, 3) image plus the OR of all bands' coverage-overflow
-    flags (bucket method; always False for pairs with exact expansion)."""
+    flags."""
     axis = mesh.axis_names[0]
     nd = mesh.shape[axis]
 
@@ -117,8 +107,7 @@ def render_3dgs_sharded(splats: SplatSet, cam: Camera, cfg: RenderConfig,
         proj = project_splats(prepared, cam, cfg)
         proj = _gather_proj(proj, axis)
         band = jax.lax.axis_index(axis)
-        img, trans, ov = _render_band(proj, cfg, max_pairs, band, nd,
-                                      interpret)
+        img, trans, ov = _render_band(proj, cfg, max_pairs, band, nd)
         return img, trans, jax.lax.psum(ov.astype(jnp.int32), axis) > 0
 
     fn = jax.shard_map(
@@ -132,10 +121,9 @@ def render_3dgs_sharded(splats: SplatSet, cam: Camera, cfg: RenderConfig,
     return img[:cfg.height], trans[:cfg.height], overflow
 
 
-@partial(jax.jit, static_argnames=("cfg", "max_pairs", "mesh", "interpret"))
+@partial(jax.jit, static_argnames=("cfg", "max_pairs", "mesh"))
 def render_3dgut_sharded(splats: SplatSet, cam: Camera, cfg: RenderConfig,
-                         max_pairs: int, mesh: Mesh,
-                         interpret: bool | None = None):
+                         max_pairs: int, mesh: Mesh):
     """3DGUT forward with splat-sharded UT projection and band-sharded
     exact-ray rasterization. Each band blends with rays regenerated for its
     sub-viewport (cy shifted — the pixel context never crosses bands).
@@ -171,7 +159,7 @@ def render_3dgut_sharded(splats: SplatSet, cam: Camera, cfg: RenderConfig,
         local_cfg = cfg.replace(height=h_local)
         band_cam = dataclasses.replace(cam, cy=cam.cy - y_off)
         st = _gut_statics(
-            dataclasses.replace(raster_statics(cfg, interpret),
+            dataclasses.replace(raster_statics(cfg),
                                 tiles_y=ty_local),
             cfg, packed=False)
         pix_ctx = build_tile_rays(band_cam, local_cfg)
@@ -189,10 +177,9 @@ def render_3dgut_sharded(splats: SplatSet, cam: Camera, cfg: RenderConfig,
     return img[:cfg.height], trans[:cfg.height], overflow
 
 
-@partial(jax.jit, static_argnames=("cfg", "max_pairs", "mesh", "interpret"))
+@partial(jax.jit, static_argnames=("cfg", "max_pairs", "mesh"))
 def render_3dgrt_sharded(splats: SplatSet, cam: Camera, cfg: RenderConfig,
-                         max_pairs: int, mesh: Mesh,
-                         interpret: bool | None = None):
+                         max_pairs: int, mesh: Mesh):
     """3DGRT primary rays over the mesh: splat-sharded UT projection +
     band-sharded exact-ray blending in shared-origin RADIAL order (the
     per-ray-t order of rgen:615-818 for primaries — see render_3dgrt).
@@ -228,7 +215,7 @@ def render_3dgrt_sharded(splats: SplatSet, cam: Camera, cfg: RenderConfig,
         local_cfg = cfg.replace(height=h_local)
         band_cam = dataclasses.replace(cam, cy=cam.cy - y_off)
         st = _gut_statics(
-            dataclasses.replace(raster_statics(cfg, interpret),
+            dataclasses.replace(raster_statics(cfg),
                                 tiles_y=ty_local),
             cfg, packed=False,
             alpha_clamp=cfg.rt.alpha_clamp,
@@ -249,24 +236,28 @@ def render_3dgrt_sharded(splats: SplatSet, cam: Camera, cfg: RenderConfig,
     return img[:cfg.height], trans[:cfg.height], overflow
 
 
-@partial(jax.jit, static_argnames=("cfg", "max_pairs", "mesh", "interpret"))
+@partial(jax.jit, static_argnames=("cfg", "max_pairs", "mesh"))
 def train_step_sharded(splats: SplatSet, cam: Camera, target: jax.Array,
                        cfg: RenderConfig, max_pairs: int, mesh: Mesh,
-                       lr: float = 1e-2, interpret: bool | None = None):
+                       lr: float = 1e-2):
     """One SGD step of image-supervised splat optimization over the mesh.
 
-    splats: sharded over the mesh axis (leading dim). target: (H, W, 3)
-    sharded over rows in tile-row bands. Returns (updated splats, loss).
+    splats: sharded over the mesh axis (leading dim). target: (H, W, 3),
+    split over rows into the tile-row bands; when the bands overhang the
+    image (e.g. 1080 rows over 4 devices) it pads with zero rows, where the
+    render is empty too. Returns (updated splats, loss).
     """
     axis = mesh.axis_names[0]
     nd = mesh.shape[axis]
+    pad = nd * _band_rows(cfg, nd) * cfg.raster.tile_size - target.shape[0]
+    target = jnp.pad(target, ((0, pad), (0, 0), (0, 0)))
 
     def shard_loss(splats_local: SplatSet, cam: Camera, target_local: jax.Array):
         prepared = prepare_splats(splats_local, cfg.sh_format)
         proj = project_splats(prepared, cam, cfg)
         proj = _gather_proj(proj, axis)
         band = jax.lax.axis_index(axis)
-        img, _, _ = _render_band(proj, cfg, max_pairs, band, nd, interpret)
+        img, _, _ = _render_band(proj, cfg, max_pairs, band, nd)
         return jax.lax.psum(jnp.sum((img - target_local) ** 2), axis)
 
     loss_fn = jax.shard_map(

@@ -1,7 +1,7 @@
 """Surface info + deferred shading (S11, deferred_shading.comp.slang; NEED_SURFACE_INFO
 paths of the raster shaders).
 
-Surface reconstruction on TPU:
+Surface reconstruction here:
 - per-splat normals via the max-density-plane approximation
   (computeEllipsoidNormalMaxDensityPlane, threedgrt.h.slang:358-418) with the
   thin-particle fallbacks, vectorized over all splats;
@@ -78,7 +78,7 @@ def render_normal_buffer(prepared: PreparedSplats, proj, cam: Camera,
                          pix_ctx=None, use_gut_rows: bool = False) -> jax.Array:
     """Opacity-weighted blended normal image (H,W,3) — one extra blender pass
     with normals riding the color rows (frag.slang:320-349 outNormal MRT)."""
-    from vk_gaussian_splatting_tpu.ops.rasterize_pallas import (
+    from vk_gaussian_splatting_tpu.ops.tile_blend import (
         assemble_image,
         rasterize_bins,
     )
@@ -95,7 +95,7 @@ def render_normal_buffer(prepared: PreparedSplats, proj, cam: Camera,
             else gs_attr_rows(proj_n))
     bins = bin_for_cfg(proj_n, rows, cfg, max_pairs)
     out = rasterize_bins(bins, pix_ctx, None, st)
-    nrm, trans = assemble_image(out, bins.seg_counts, st.tiles_x, st.tiles_y,
+    nrm, trans = assemble_image(out, st.tiles_x, st.tiles_y,
                                 cfg.width, cfg.height, (0.0, 0.0, 0.0))
     w = jnp.maximum(1.0 - trans, 1e-6)[..., None]
     nrm = nrm / w
@@ -116,7 +116,7 @@ class DeferredMaterial:
 def instance_index_image(splat_id_img: jax.Array,
                          instance_base) -> jax.Array:
     """(H,W) i32 instance index per pixel from the picked global splat id
-    and the global index table's instance bases — the TPU analog of the
+    and the global index table's instance bases — the analog of the
     shader's global-index-table material lookup
     (deferred_shading.comp.slang:107-124). Pixels with no pick get 0 (they
     are masked by `covered` downstream)."""

@@ -2,7 +2,7 @@
 threedmesh_raster + the FTB mesh-composited frame of
 gaussian_splatting.cpp:705-850).
 
-The TPU design reuses the whole splat machinery: triangles project, bin into
+The design reuses the whole splat machinery: triangles project, bin into
 tiles through the same pair expansion (rect extents = 2D bounding boxes), and
 "blend" front-to-back with the ``tri2d`` response (alpha 1 inside) — the
 first covering triangle wins, i.e. a z-buffer expressed as sorted
@@ -28,7 +28,7 @@ from vk_gaussian_splatting_tpu.config import RenderConfig, tiles_x, tiles_y
 from vk_gaussian_splatting_tpu.io.obj import ObjMesh
 from vk_gaussian_splatting_tpu.ops.binning import bin_splats
 from vk_gaussian_splatting_tpu.ops.projection import ProjectedSplats
-from vk_gaussian_splatting_tpu.ops.rasterize_pallas import (
+from vk_gaussian_splatting_tpu.ops.tile_blend import (
     OUT_COLS,
     PIX,
     TILE,
@@ -186,12 +186,9 @@ def _tri_smooth_attr_rows(tri_uv: jax.Array, tri_z: jax.Array,
     ], axis=0)
 
 
-def render_mesh(mesh: MeshBuffers, cam: Camera, cfg: RenderConfig,
-                max_pairs: int, lights=(), interpret: bool | None = None):
-    """Rasterize a triangle mesh: returns (color (H,W,3), coverage mask
-    transmittance (H,W) — 0 where covered, depth (H,W), face id (H,W))."""
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
+def mesh_bins(mesh: MeshBuffers, cam: Camera, cfg: RenderConfig,
+              max_pairs: int, lights=()):
+    """Triangles binned for the tile blender: (TileBins, RasterStatics)."""
     proj, tri_uv, tri_z, vcol = _project_triangles(mesh, cam, cfg, lights)
     smooth = cfg.raster.mesh_shading == "smooth"
     # opaque geometry: the depth-iso pick at threshold ~1 records the first
@@ -199,21 +196,28 @@ def render_mesh(mesh: MeshBuffers, cam: Camera, cfg: RenderConfig,
     st = RasterStatics(
         tiles_x=tiles_x(cfg), tiles_y=tiles_y(cfg), chunk=cfg.raster.chunk,
         model="tri2d_smooth" if smooth else "tri2d", depth_iso=0.999,
-        interpret=interpret,
     )
     rows = (_tri_smooth_attr_rows(tri_uv, tri_z, vcol) if smooth
             else _tri_attr_rows(tri_uv, proj))
     exact = cfg.raster.expansion == "exact"
     bins = bin_splats(
         proj, rows, tile_size=cfg.raster.tile_size, tiles_x=st.tiles_x,
-        tiles_y=st.tiles_y, chunk=cfg.raster.chunk,
+        tiles_y=st.tiles_y,
         slots_k=max(cfg.raster.slots_k, 64),  # triangles often span many tiles
         max_pairs=max_pairs if exact else 0,
         expansion=cfg.raster.expansion,
         classes=False)  # few triangles; class caps (n/8, n/64) are too tight
+    return bins, st
+
+
+def render_mesh(mesh: MeshBuffers, cam: Camera, cfg: RenderConfig,
+                max_pairs: int, lights=()):
+    """Rasterize a triangle mesh: returns (color (H,W,3), coverage mask
+    transmittance (H,W) — 0 where covered, depth (H,W), face id (H,W))."""
+    bins, st = mesh_bins(mesh, cam, cfg, max_pairs, lights)
     out = rasterize_bins(bins, None, None, st)
     img, trans, depth, fid = assemble_image(
-        out, bins.seg_counts, st.tiles_x, st.tiles_y, cfg.width, cfg.height,
+        out, st.tiles_x, st.tiles_y, cfg.width, cfg.height,
         cfg.background, with_aux=True)
     return img, trans, depth, fid
 

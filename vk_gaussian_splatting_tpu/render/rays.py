@@ -4,10 +4,10 @@ Re-expresses the fragment-shader ray generation of
 threedgut_raster.frag.slang:92-109 (generatePinholeRay / generateFisheyeRay +
 thin-lens depthOfField, cameras.h.slang:27-105) as one vectorized jnp pass
 over the padded tile grid, emitting the (T, 8, 256) pixel-context array the
-tile blender DMAs per tile (rows RAY_* of ops/response.py).
+tile blender reads per tile (rows RAY_* of ops/response.py).
 
 DoF sampling uses counter-based jax.random keyed on (frame sample id) — the
-TPU-deterministic replacement for the fragment shader's xxhash32 seed.
+deterministic replacement for the fragment shader's xxhash32 seed.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import jax.numpy as jnp
 
 from vk_gaussian_splatting_tpu.config import CameraType, RenderConfig, tiles_x, tiles_y
 from vk_gaussian_splatting_tpu.ops.projection import fisheye_max_angle
-from vk_gaussian_splatting_tpu.ops.rasterize_pallas import OUT_COLS, PIX, TILE
+from vk_gaussian_splatting_tpu.ops.tile_blend import OUT_COLS, PIX, TILE
 from vk_gaussian_splatting_tpu.scene.cameras import Camera
 
 

@@ -3,7 +3,7 @@
 The reference traces per-pixel shadow rays through the particle BVH
 (rgen:1261-1464: any-hit transmittance accumulation toward each light with
 ``particleShadowOffset`` self-shadow bias and a transmittance threshold). The
-TPU-native equivalent renders, per light, a *deep shadow map*: one gs2d pass
+raster equivalent here renders, per light, a *deep shadow map*: one gs2d pass
 from the light's viewpoint with the tile blender's multi-iso depth picks —
 the depths at which transmittance crosses (0.75, 0.5, 0.25, 0.05) — giving a
 piecewise-constant T(depth) staircase per light pixel. The deferred pass
@@ -44,9 +44,10 @@ import numpy as np
 
 from vk_gaussian_splatting_tpu.config import RenderConfig, tiles_x, tiles_y
 from vk_gaussian_splatting_tpu.ops.projection import project_splats
-from vk_gaussian_splatting_tpu.ops.rasterize_pallas import (
+from vk_gaussian_splatting_tpu.ops.tile_blend import (
+    OUT_COLS,
+    TILE,
     RasterStatics,
-    assemble_image,
     rasterize_bins,
 )
 from vk_gaussian_splatting_tpu.scene.cameras import Camera, make_camera
@@ -118,20 +119,15 @@ class DeepShadowMap:
 
 def render_deep_shadow_map(prepared: PreparedSplats, light: LightSource,
                            cfg: RenderConfig, res: int = 512,
-                           max_pairs: int | None = None,
-                           interpret: bool | None = None) -> DeepShadowMap:
+                           max_pairs: int | None = None) -> DeepShadowMap:
     center, radius = scene_bounds(prepared)
     cam = light_camera(light, center, radius, res)
-    return _render_dsm_for_camera(prepared, cam, cfg, res, max_pairs,
-                                  interpret)
+    return _render_dsm_for_camera(prepared, cam, cfg, res, max_pairs)
 
 
 def _render_dsm_for_camera(prepared: PreparedSplats, cam: Camera,
                            cfg: RenderConfig, res: int,
-                           max_pairs: int | None = None,
-                           interpret: bool | None = None) -> DeepShadowMap:
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
+                           max_pairs: int | None = None) -> DeepShadowMap:
     light_cfg = cfg.replace(width=res, height=res)
     if max_pairs is None:
         max_pairs = max(4 * prepared.num_splats, 1 << 18)
@@ -145,13 +141,9 @@ def _render_dsm_for_camera(prepared: PreparedSplats, cam: Camera,
     st = RasterStatics(
         tiles_x=tiles_x(light_cfg), tiles_y=tiles_y(light_cfg),
         chunk=cfg.raster.chunk, model="gs2d", multi_iso=True,
-        iso_thresholds=ISO_LEVELS, interpret=interpret)
+        iso_thresholds=ISO_LEVELS)
     out = rasterize_bins(bins, None, None, st)
-    # rows 4-7 hold the iso depths; reuse assemble for layout then slice
-    from vk_gaussian_splatting_tpu.ops.rasterize_pallas import OUT_COLS, PIX, TILE
-    empty = jnp.zeros((out.shape[0], OUT_COLS, PIX), jnp.float32)
-    live = (bins.seg_counts > 0)[:, None, None]
-    out = jnp.where(live, out, empty)
+    # rows 4-7 hold the iso depths (0 = no crossing)
     ty, tx = tiles_y(light_cfg), tiles_x(light_cfg)
     blocks = out.reshape(ty, tx, OUT_COLS, TILE, TILE)
     full = blocks.transpose(0, 3, 1, 4, 2).reshape(ty * TILE, tx * TILE,
@@ -246,8 +238,7 @@ class CubeShadowMap:
 
 def render_cube_shadow_map(prepared: PreparedSplats, light: LightSource,
                            cfg: RenderConfig, res: int = 256,
-                           max_pairs: int | None = None,
-                           interpret: bool | None = None) -> CubeShadowMap:
+                           max_pairs: int | None = None) -> CubeShadowMap:
     """6 deep-shadow-map faces with slightly-over-90-degree fov (so face
     seams stay covered) from the light position — the enclosed-point-light
     variant a single perspective cone cannot express."""
@@ -262,7 +253,7 @@ def render_cube_shadow_map(prepared: PreparedSplats, light: LightSource,
         cam = make_camera(viewmat, f, f, res * 0.5, res * 0.5,
                           1e-3, 4.0 * radius)
         faces.append(_render_dsm_for_camera(prepared, cam, cfg, res,
-                                            max_pairs, interpret))
+                                            max_pairs))
     return CubeShadowMap(faces=faces)
 
 
@@ -280,7 +271,7 @@ def sample_shadow_cube(world_pos: jax.Array, csm: CubeShadowMap,
 
 
 def make_shadow_fn(prepared: PreparedSplats, lights, cfg: RenderConfig,
-                   res: int = 512, interpret: bool | None = None):
+                   res: int = 512):
     """Builds deferred_shade's shadow_fn: one deep shadow map per light.
 
     A POINT light inside the scene bounding sphere gets a 6-face cube map
@@ -302,10 +293,10 @@ def make_shadow_fn(prepared: PreparedSplats, lights, cfg: RenderConfig,
             enclosed = False
         if enclosed:
             maps[id(light)] = render_cube_shadow_map(
-                prepared, light, cfg, min(res, 256), interpret=interpret)
+                prepared, light, cfg, min(res, 256))
         else:
             maps[id(light)] = render_deep_shadow_map(
-                prepared, light, cfg, res, interpret=interpret)
+                prepared, light, cfg, res)
     strength = cfg.rt.shadow_color_strength
     threshold = cfg.rt.shadow_transmittance_threshold
 

@@ -7,7 +7,7 @@ material, scaling the carried transmittance by the material specular /
 transmittance and re-tracing meshes (closest hit) + particles (k-buffer
 marching) along the new ray (wavefront.h.slang illum dispatch).
 
-TPU redesign: secondary rays are a dense batch, not per-pixel recursion —
+Redesign: secondary rays are a dense batch, not per-pixel recursion —
 spawn rays at every raster pixel whose mesh face is reflective/refractive
 (optionally at a subsampled stride), then run a statically-bounded bounce
 loop where each bounce is one ``trace_mesh`` closest-hit sweep + one
@@ -21,7 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from vk_gaussian_splatting_tpu.config import RenderConfig, tiles_x, tiles_y
-from vk_gaussian_splatting_tpu.ops.rasterize_pallas import OUT_COLS, TILE
+from vk_gaussian_splatting_tpu.ops.tile_blend import OUT_COLS, TILE
 from vk_gaussian_splatting_tpu.ops.raytrace import (
     reflect,
     refract_or_reflect,

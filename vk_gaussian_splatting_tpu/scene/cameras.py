@@ -117,9 +117,9 @@ def look_at(eye, center, up, width: int, height: int, fov_y_rad: float = 0.8,
 def view_transform_points(viewmat: jax.Array, points: jax.Array) -> jax.Array:
     """(N,3) world points -> camera space via (4,4) viewmat.
 
-    precision=highest: TPU's default f32 matmul runs at bfloat16 precision,
-    which visibly shifts projected positions (~1e-3 relative); geometry math
-    must use the full-precision MXU passes."""
+    precision=highest: on the GPU a default f32 matmul may run in TF32
+    (about three decimal digits), which visibly shifts projected positions;
+    geometry math must stay full f32."""
     return jnp.matmul(points, viewmat[:3, :3].T,
                       precision=jax.lax.Precision.HIGHEST) + viewmat[:3, 3]
 

@@ -7,7 +7,7 @@ splat_set_manager_vk.cpp:2304-2360 rebuildGlobalIndexTables, :2426-2517
 unified sorting buffers). The shaders then fetch through bindless descriptors
 and apply instance transforms per splat.
 
-The TPU-native equivalent *bakes instance transforms into the flattened
+The equivalent here *bakes instance transforms into the flattened
 parameter arrays* at scene-preparation time (the analog of
 processVramUpdates): a rigid + uniform-scale instance transform composes
 exactly into per-splat (mean, quat, log-scale), so the whole scene becomes one
@@ -111,8 +111,8 @@ def bake_general_transform(transform: np.ndarray, means: np.ndarray,
     """Apply an arbitrary invertible affine instance transform per splat.
 
     The transformed Gaussian's covariance A Sigma A^T (A = linear part) is
-    eigendecomposed back into fresh (means, log-scales, quats) — the TPU
-    answer to the reference's in-shader instance matrices (shaderio
+    eigendecomposed back into fresh (means, log-scales, quats) — the
+    answer here to the reference's in-shader instance matrices (shaderio
     SplatSetDesc.transform), keeping the scale/quat factorization the gut3d
     exact-ray response requires. Returns numpy f32 arrays."""
     m4 = np.asarray(transform, np.float64)

@@ -1,6 +1,6 @@
 """Splat-set data model.
 
-TPU-native re-design of the reference's RAM/VRAM splat storage:
+Re-design of the reference's RAM/VRAM splat storage:
 
 - ``SplatSet`` mirrors the *raw* PLY parameterization (splat_set.h:33-47):
   log-space scales, logit opacities, (w,x,y,z) quaternions, SH coefficients.
@@ -138,10 +138,9 @@ def covariance_from_scale_rot(scales_log: jax.Array, quats: jax.Array,
     Matches the reference upload-time precompute (splat_set_vk.cpp:265-288):
     scales exponentiate from log space, quaternion normalized.
 
-    Column arithmetic, not an (N,3,3) einsum: TPU tiling pads the trailing
-    3x3 dims to (4,128) lanes, so the einsum's fused temporaries cost ~57x
-    their logical size — 11.8 GB at 6.2M splats (OOM on one v5e). Columns
-    tile natively with no waste.
+    Column arithmetic, not an (N,3,3) einsum: the columns fuse into
+    elementwise kernels with no (N,3,3) temporaries, and plain f32 FMA never
+    runs in TF32.
     """
     s = jnp.exp(scales_log) * scale_multiplier          # (N,3)
     q = quats / jnp.linalg.norm(quats, axis=-1, keepdims=True).clip(1e-12)

@@ -6,7 +6,7 @@ benchmark.py:21):
 
     Timer "GPU Dist"; GPU; avg 1234; ...; CPU; avg 1300;
 
-with averages in microseconds. On TPU "GPU" time is device wall time measured
+with averages in microseconds. Here "GPU" time is device wall time measured
 around block_until_ready (XLA has no per-stage GPU timestamps across a fused
 program; stages are timed as separately-jitted calls) and "CPU" time includes
 host dispatch.

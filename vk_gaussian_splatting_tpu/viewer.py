@@ -55,7 +55,11 @@ def main(argv=None):
     from vk_gaussian_splatting_tpu.config import Pipeline, RenderConfig
     from vk_gaussian_splatting_tpu.io import load_scene
     from vk_gaussian_splatting_tpu.render import render
+    from vk_gaussian_splatting_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
 
+    enable_compile_cache()
     splats = load_scene(args.scene)
     prepared = splats.prepare()
     means = np.asarray(prepared.means)

@@ -1,8 +1,8 @@
 """Interactive web viewer: orbit/pan/zoom over HTTP (the H17 equivalent).
 
 The reference's inspection surface is a 4.1k-line ImGui/Vulkan app
-(gaussian_splatting_ui.cpp). The TPU-idiomatic answer is a render SERVER:
-the chip renders frames on demand and a minimal browser page provides the
+(gaussian_splatting_ui.cpp). The answer here is a render SERVER:
+the accelerator renders frames on demand and a minimal browser page provides the
 interactivity — drag to orbit, wheel to zoom, keys for pipeline/SH/display
 modes. Frames stream as PNG over plain ``http.server`` (stdlib only; no
 egress, no deps beyond optional Pillow for encoding).
@@ -30,7 +30,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 _PAGE = """<!doctype html>
-<html><head><title>vkgs-tpu viewer</title><style>
+<html><head><title>vkgs viewer</title><style>
  body { margin:0; background:#111; color:#ddd; font:13px monospace; }
  #hud { position:fixed; top:8px; left:8px; background:#000a; padding:6px; }
  img { display:block; margin:auto; image-rendering:pixelated; }
@@ -190,6 +190,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from vk_gaussian_splatting_tpu.io import load_scene
+    from vk_gaussian_splatting_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+    enable_compile_cache()
     splats = load_scene(args.scene)
     prepared = splats.prepare()
     means = np.asarray(splats.means)
